@@ -1,0 +1,227 @@
+"""Core data model: raw scans, preprocessed frames, estimation frames.
+
+Twin of ``glim_tpu/types.py``: point clouds are padded fixed-capacity SoA
+tensors with validity masks; capacity classes are powers of two. Device
+fields are torch tensors on the pipeline's device; host mirrors are fetched
+lazily with ``.detach().cpu().numpy()`` on first access.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+def capacity_for(n: int, minimum: int = 512) -> int:
+    """Round n up to the next power-of-two capacity class."""
+    c = minimum
+    while c < n:
+        c *= 2
+    return c
+
+
+def to_numpy(t, dtype=None) -> np.ndarray:
+    """Host copy of a tensor (or pass-through for numpy input)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, dtype) if dtype is not None else np.asarray(t)
+
+
+@dataclass
+class PointBatch:
+    """Padded SoA point cloud resident on device; invalid lanes are masked."""
+
+    points: torch.Tensor          # (C, 3) f32
+    mask: torch.Tensor            # (C,) bool
+    times: Optional[torch.Tensor] = None        # (C,) f32
+    intensities: Optional[torch.Tensor] = None  # (C,) f32
+    covs: Optional[torch.Tensor] = None         # (C, 3, 3) f32
+    normals: Optional[torch.Tensor] = None      # (C, 3) f32
+
+
+@dataclass
+class RawPoints:
+    """One raw sensor scan (reference: util/raw_points.hpp:12-27)."""
+
+    stamp: float
+    points: np.ndarray                       # (N, 3) or (N, 4) f64
+    times: Optional[np.ndarray] = None       # (N,) per-point times
+    intensities: Optional[np.ndarray] = None
+    colors: Optional[np.ndarray] = None      # (N, 4)
+    rings: Optional[np.ndarray] = None       # (N,) int
+
+    @property
+    def size(self) -> int:
+        return int(self.points.shape[0])
+
+
+class PreprocessedFrame:
+    """Downsampled/filtered scan + kNN graph, padded to the preprocessor's
+    output capacity; host mirrors are fetched lazily."""
+
+    def __init__(self, stamp: float, scan_end_time: float, k_neighbors: int,
+                 device_points=None, device_times=None, device_mask=None,
+                 device_neighbors=None, raw_points: Optional[RawPoints] = None,
+                 points: Optional[np.ndarray] = None,
+                 times: Optional[np.ndarray] = None,
+                 intensities: Optional[np.ndarray] = None,
+                 neighbors: Optional[np.ndarray] = None):
+        self.stamp = stamp
+        self.scan_end_time = scan_end_time
+        self.k_neighbors = k_neighbors
+        self.device_points = device_points      # (C, 3)
+        self.device_times = device_times        # (C,)
+        self.device_mask = device_mask          # (C,)
+        self.device_neighbors = device_neighbors  # (C, k)
+        self.raw_points = raw_points
+        self.intensities = intensities
+        self._points = points
+        self._times = times
+        self._neighbors = neighbors
+
+    @property
+    def points(self) -> Optional[np.ndarray]:
+        if self._points is None and self.device_points is not None:
+            self._points = to_numpy(self.device_points)
+        return self._points
+
+    @property
+    def times(self) -> Optional[np.ndarray]:
+        if self._times is None and self.device_times is not None:
+            self._times = to_numpy(self.device_times)
+        return self._times
+
+    @property
+    def neighbors(self) -> Optional[np.ndarray]:
+        if self._neighbors is None and self.device_neighbors is not None:
+            self._neighbors = to_numpy(self.device_neighbors)
+        return self._neighbors
+
+    @property
+    def size(self) -> int:
+        if self.device_mask is not None:
+            return int(to_numpy(self.device_mask).sum())
+        return int(self._points.shape[0]) if self._points is not None else 0
+
+
+class FrameID(enum.Enum):
+    WORLD = "world"
+    LIDAR = "lidar"
+    IMU = "imu"
+
+
+class EstimationFrame:
+    """One odometry estimation frame; world poses may be backed by device
+    tensors and are fetched lazily."""
+
+    def __init__(self, id: int = -1, stamp: float = 0.0,
+                 T_lidar_imu: Optional[np.ndarray] = None,
+                 T_world_lidar: Optional[np.ndarray] = None,
+                 T_world_imu: Optional[np.ndarray] = None,
+                 device_T_world_lidar=None,
+                 v_world_imu: Optional[np.ndarray] = None,
+                 device_v_world_imu=None,
+                 imu_bias: Optional[np.ndarray] = None,
+                 device_imu_bias=None,
+                 imu_rate_trajectory: Optional[np.ndarray] = None,
+                 cov_pose=None, cov_velocity=None, cov_bias=None,
+                 frame_id: FrameID = FrameID.LIDAR,
+                 frame: Optional[PointBatch] = None,
+                 raw_frame: Optional[PreprocessedFrame] = None,
+                 custom_data: Optional[Dict[str, Any]] = None):
+        self.id = id
+        self.stamp = stamp
+        self.T_lidar_imu = np.eye(4) if T_lidar_imu is None else T_lidar_imu
+        self._T_world_lidar = T_world_lidar
+        self._T_world_imu = T_world_imu
+        self.device_T_world_lidar = device_T_world_lidar
+        self._v_world_imu = v_world_imu
+        self.device_v_world_imu = device_v_world_imu
+        self._imu_bias = imu_bias
+        self.device_imu_bias = device_imu_bias
+        self._imu_rate_trajectory = imu_rate_trajectory
+        # (packed (8, CAP) [stamps_rel; trans(3); quats(4)], n, stamp0).
+        self.device_imu_rate_trajectory = None
+        self.cov_pose = cov_pose
+        self.cov_velocity = cov_velocity
+        self.cov_bias = cov_bias
+        self.frame_id = frame_id
+        self.frame = frame
+        self.raw_frame = raw_frame
+        self.custom_data = {} if custom_data is None else custom_data
+
+    @property
+    def T_world_lidar(self) -> np.ndarray:
+        if self._T_world_lidar is None:
+            if self.device_T_world_lidar is not None:
+                self._T_world_lidar = to_numpy(self.device_T_world_lidar, np.float64)
+            else:
+                self._T_world_lidar = np.eye(4)
+        return self._T_world_lidar
+
+    @T_world_lidar.setter
+    def T_world_lidar(self, T) -> None:
+        self._T_world_lidar = np.asarray(T, np.float64)
+
+    @property
+    def T_world_imu(self) -> np.ndarray:
+        # p_lidar = T_lidar_imu * p_imu, hence T_world_imu = T_world_lidar * T_lidar_imu.
+        if self._T_world_imu is None:
+            self._T_world_imu = self.T_world_lidar @ self.T_lidar_imu
+        return self._T_world_imu
+
+    @T_world_imu.setter
+    def T_world_imu(self, T) -> None:
+        self._T_world_imu = np.asarray(T, np.float64)
+
+    @property
+    def imu_rate_trajectory(self):
+        """(8, n) [abs stamps; trans xyz; quat xyzw] or None."""
+        if self._imu_rate_trajectory is None \
+                and self.device_imu_rate_trajectory is not None:
+            packed, n, stamp0 = self.device_imu_rate_trajectory
+            arr = to_numpy(packed, np.float64)[:, :n].copy()
+            arr[0] += stamp0
+            self._imu_rate_trajectory = arr
+        return self._imu_rate_trajectory
+
+    @imu_rate_trajectory.setter
+    def imu_rate_trajectory(self, traj) -> None:
+        self._imu_rate_trajectory = traj
+
+    @property
+    def imu_bias(self) -> np.ndarray:
+        if self._imu_bias is None:
+            if self.device_imu_bias is not None:
+                self._imu_bias = to_numpy(self.device_imu_bias, np.float64)
+            else:
+                self._imu_bias = np.zeros(6)
+        return self._imu_bias
+
+    @imu_bias.setter
+    def imu_bias(self, b) -> None:
+        self._imu_bias = np.asarray(b, np.float64)
+
+    @property
+    def v_world_imu(self) -> np.ndarray:
+        if self._v_world_imu is None:
+            if self.device_v_world_imu is not None:
+                self._v_world_imu = to_numpy(self.device_v_world_imu, np.float64)
+            else:
+                self._v_world_imu = np.zeros(3)
+        return self._v_world_imu
+
+    @v_world_imu.setter
+    def v_world_imu(self, v) -> None:
+        self._v_world_imu = np.asarray(v, np.float64)
+
+    def T_world_sensor(self) -> np.ndarray:
+        if self.frame_id == FrameID.LIDAR:
+            return self.T_world_lidar
+        if self.frame_id == FrameID.IMU:
+            return self.T_world_imu
+        return np.eye(4)
