@@ -7,10 +7,11 @@ model, and joint optimisation of pose/velocity/bias over a
 ``window_scan_step`` call per scan. The host packs the IMU window, calls the
 step, and decodes the small status vector ``_status_lag`` scans late.
 
-The map model is a subclass hook. The flagship VGICP configuration (Gaussian
-keyframe maps, ``keyframe_manager``, registered as
-``odometry_estimation_gpu``) is not ported yet; the GICP subclass in
-``odometry_estimation_cpu_imu.py`` provides the model hooks here.
+The map model is a set of hooks. Here they are the flagship's: multi-
+resolution Gaussian voxel maps matched by VGICP, whose contents the
+``KeyframeManager`` decides (registered as ``odometry_estimation_gpu``, the
+default configuration). The GICP subclass in ``odometry_estimation_cpu_imu.py``
+overrides them with its point map.
 """
 
 from __future__ import annotations
@@ -20,20 +21,37 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from glim_tpu_torch.odometry.callbacks import OdometryEstimationCallbacks as CB
 from glim_tpu_torch.odometry.estimation_base import OdometryEstimationBase
+from glim_tpu_torch.odometry.keyframe_manager import KeyframeManager
 from glim_tpu_torch.odometry.window_estimator import (
-    OLD_SUBSAMPLE, STATUS_FINITE, STATUS_POSES, WindowState, _set_last,
-    empty_window, window_scan_step)
+    OLD_SUBSAMPLE, STATUS_DROT, STATUS_DTRANS, STATUS_FINITE, STATUS_LOGDET,
+    STATUS_OVERLAP, STATUS_POSES, WindowState, _set_last, empty_window,
+    window_scan_step)
 from glim_tpu_torch.ops import covariance as cov_ops
-from glim_tpu_torch.types import (EstimationFrame, FrameID, PointBatch,
-                                  PreprocessedFrame, to_numpy)
+from glim_tpu_torch.ops import voxelmap as vmx
+from glim_tpu_torch.ops.pointops import median_distance
+from glim_tpu_torch.types import (EstimationFrame, FrameID, HostCopy, PointBatch,
+                                  PreprocessedFrame, to_numpy, upload)
 from glim_tpu_torch.utils.logging import create_module_logger
+from glim_tpu_torch.utils.registry import register_module
 
 logger = create_module_logger("odom")
 
 GRAVITY = np.array([0.0, 0.0, -9.80665])
+
+
+def _adaptive_base_resolution(points, mask, res_min: float, res_max: float,
+                              dmin: float, dmax: float) -> torch.Tensor:
+    """Adaptive base resolution from a frame's median point distance: a
+    linear ramp res_min -> res_max over median distance dmin -> dmax. A 0-dim
+    device tensor, computed per keyframe insert and never read on the host."""
+    med = median_distance(points, mask)
+    t = torch.clamp((med - dmin) / max(dmax - dmin, 1e-6), 0.0, 1.0)
+    return res_min + t * (res_max - res_min)
+
 
 # Window capacity buckets: smoother_lag at the nominal 10 Hz scan rate picks
 # the smallest bucket >= lag * 10 (the default 5 s lag runs a 48-state
@@ -137,9 +155,9 @@ class OdometryEstimationIMUParams:
 
 
 class OdometryEstimationIMU(OdometryEstimationBase):
-    """Shared LiDAR-IMU window machinery on ``device``; subclasses provide the
-    map model through ``_make_model``, ``_init_model``, ``_maybe_update_model``
-    and ``_last_kf_pose_dev``."""
+    """The LiDAR-IMU window odometry on ``device`` with the VGICP keyframe
+    maps; subclasses may replace the map model through ``_make_model``,
+    ``_init_model``, ``_maybe_update_model`` and ``_last_kf_pose_dev``."""
 
     def __init__(self, params: Optional[OdometryEstimationIMUParams] = None,
                  device="cpu"):
@@ -148,9 +166,15 @@ class OdometryEstimationIMU(OdometryEstimationBase):
         p = self.params
         self.T_lidar_imu = np.eye(4) if p.T_lidar_imu is None else np.asarray(p.T_lidar_imu)
         self.W = p.window_size or _window_bucket(p.smoother_lag)
+        # Multi-resolution keyframe maps: level l has half the capacity (at
+        # least 8192) and scaling_factor^l the resolution of level 0.
+        self._model_caps = [max(p.voxel_capacity >> lvl, 8192)
+                            for lvl in range(max(p.voxelmap_levels, 1))]
+        self._model_res = self._level_resolutions(p.voxel_resolution)
         self.model = self._make_model()
         self._matching = "vgicp"
-        self._max_corr_dist = 2.0
+        self._max_corr_dist = 2.0           # used by the "gicp" mode only
+        self.keyframes: Optional[KeyframeManager] = None   # lazy (needs C)
         self.window: Optional[WindowState] = None          # lazy (needs C)
         self._est_frames: List[EstimationFrame] = []
 
@@ -190,21 +214,75 @@ class OdometryEstimationIMU(OdometryEstimationBase):
     def _f32(self, v) -> torch.Tensor:
         return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
 
-    # -- model hooks --
+    # -- model hooks (overridden by the GICP frame-to-model subclass) --
 
     def _make_model(self):
-        raise NotImplementedError(
-            "the keyframe-map (VGICP) odometry is not ported yet; use the GICP "
-            "module odometry_estimation_cpu")
+        return tuple(vmx.empty_gaussian_voxelmap(c, r, device=self.device)
+                     for c, r in zip(self._model_caps, self._model_res))
 
     def _last_kf_pose_dev(self):
-        raise NotImplementedError
+        return self.keyframes.last_kf_T_wi
+
+    def _level_resolutions(self, base):
+        p = self.params
+        return [base * (p.voxelmap_scaling_factor ** lvl)
+                for lvl in range(max(p.voxelmap_levels, 1))]
 
     def _init_model(self, frame, covs, T_wl_dev, T_wi_dev, T0_host) -> None:
-        raise NotImplementedError
+        """First-frame model seeding: the first keyframe is the first frame.
+        The initial adaptive resolution comes from the first frame's median
+        distance, read once on the host before the per-scan loop."""
+        p = self.params
+        if p.voxel_resolution_max > p.voxel_resolution:
+            med = float(median_distance(frame.device_points, frame.device_mask))
+            t = float(np.clip((med - p.voxel_resolution_dmin)
+                              / max(p.voxel_resolution_dmax - p.voxel_resolution_dmin, 1e-6),
+                              0.0, 1.0))
+            base = p.voxel_resolution + t * (p.voxel_resolution_max - p.voxel_resolution)
+            if abs(base - self._model_res[0]) > 1e-6:
+                self._model_res = self._level_resolutions(base)
+                self.model = self._make_model()
+                logger.info("adaptive voxel resolution: median dist %.2f m "
+                            "-> base resolution %.3f m", med, base)
+        self.keyframes = KeyframeManager(
+            strategy=p.keyframe_update_strategy,
+            max_num_keyframes=p.max_num_keyframes,
+            min_overlap=p.keyframe_min_overlap,
+            max_overlap=p.keyframe_max_overlap,
+            delta_trans=p.keyframe_delta_trans,
+            delta_rot=p.keyframe_delta_rot,
+            entropy_thresh=p.keyframe_entropy_thresh,
+            C=int(frame.device_points.shape[0]),
+            model_capacities=self._model_caps,
+            model_resolutions=self._model_res, device=self.device)
+        self.keyframes.marginalized_callback = CB.on_marginalized_keyframes
+        self.model = self.keyframes.insert(
+            frame.device_points, covs, frame.device_mask, T_wl_dev, T_wi_dev,
+            T0_host, self.model, 0)
 
     def _maybe_update_model(self, prev: EstimationFrame, s: np.ndarray) -> None:
-        raise NotImplementedError
+        """Keyframe decision for the previous frame (its status has landed),
+        then the map insert/evict through the manager. A new keyframe also
+        re-derives the rebuild resolutions from its own median distance, as
+        device scalars (no host read)."""
+        kfm = self.keyframes
+        p = self.params
+        force = prev.id < p.bootstrap_frames
+        if force or kfm.should_insert(float(s[STATUS_OVERLAP]), float(s[STATUS_DTRANS]),
+                                      float(s[STATUS_DROT]), float(s[STATUS_LOGDET])):
+            if p.voxel_resolution_max > p.voxel_resolution:
+                base = _adaptive_base_resolution(
+                    prev.frame.points, prev.frame.mask, p.voxel_resolution,
+                    p.voxel_resolution_max, p.voxel_resolution_dmin,
+                    p.voxel_resolution_dmax)
+                kfm.set_model_resolutions(self._level_resolutions(base))
+            T_opt = s[STATUS_POSES + 19:STATUS_POSES + 35].reshape(4, 4)
+            with record_function("odom/kf_insert"):
+                self.model = kfm.insert(
+                    prev.frame.points, prev.frame.covs, prev.frame.mask,
+                    prev.device_T_world_lidar, prev.custom_data["device_T_world_imu"],
+                    T_opt, self.model, prev.id)
+            CB.on_update_keyframes(list(np.where(kfm.h_order >= 0)[0]))
 
     def _on_request_covs(self, *args) -> None:
         self._covs_requested = True
@@ -247,19 +325,20 @@ class OdometryEstimationIMU(OdometryEstimationBase):
                                       frame.scan_end_time,
                                       frame.stamp - self._t0, evict)
 
-        self.window, out = window_scan_step(
-            self.window, self.model,
-            frame.device_points, frame.device_times, frame.device_mask,
-            frame.device_neighbors, imu_packed,
-            self._d_T_lidar_imu, self._d_gravity,
-            self._d_acc_noise, self._d_gyro_noise, self._d_int_noise,
-            self._d_bias_rw_info, self._d_matching_weight,
-            self._last_kf_pose_dev(), self._d_max_corr_dist,
-            vel_reg=self._d_vel_reg,
-            W=self.W, outer_iters=p.outer_iterations,
-            inner_iters=p.inner_iterations,
-            compute_covs=self._covs_requested, matching=self._matching,
-            full_connection=p.full_connection_window_size)
+        with record_function("window_scan_step"):
+            self.window, out = window_scan_step(
+                self.window, self.model,
+                frame.device_points, frame.device_times, frame.device_mask,
+                frame.device_neighbors, imu_packed,
+                self._d_T_lidar_imu, self._d_gravity,
+                self._d_acc_noise, self._d_gyro_noise, self._d_int_noise,
+                self._d_bias_rw_info, self._d_matching_weight,
+                self._last_kf_pose_dev(), self._d_max_corr_dist,
+                vel_reg=self._d_vel_reg,
+                W=self.W, outer_iters=p.outer_iterations,
+                inner_iters=p.inner_iterations,
+                compute_covs=self._covs_requested, matching=self._matching,
+                full_connection=p.full_connection_window_size)
         CB.on_smoother_update(self)
 
         # Marginalization bookkeeping: mirrors the device-side eviction.
@@ -304,7 +383,9 @@ class OdometryEstimationIMU(OdometryEstimationBase):
         CB.on_update_frames(self._est_frames)
         CB.on_smoother_update_finish(self)
 
-        self._pending.append((out["status"], frame.stamp,
+        # The status copy starts now and is read `_status_lag` scans later,
+        # when it has long landed.
+        self._pending.append((HostCopy(out["status"]), frame.stamp,
                               frame.stamp - self.last_frame_stamp, est))
         self.frame_count += 1
         self.last_frame_stamp = frame.stamp
@@ -392,7 +473,7 @@ class OdometryEstimationIMU(OdometryEstimationBase):
         packed[cap, 0] = n
         packed[cap, 1] = scan_stamp_rel
         packed[cap, 2] = 1.0 if evict else 0.0
-        return torch.from_numpy(packed).to(self.device)
+        return upload(packed, self.device)
 
     def _try_initialize(self, frame: PreprocessedFrame) -> bool:
         """Initialization hand-off (LOOSE: LiDAR-only odometry over the
@@ -473,3 +554,11 @@ class OdometryEstimationIMU(OdometryEstimationBase):
         logger.info("initialized (%s): |v|=%.2f bias=%s W=%d",
                     p.initialization_mode, np.linalg.norm(v0), b0.round(4), self.W)
         return True
+
+
+@register_module("odometry", "odometry_estimation_gpu")
+def create_odometry_estimation_gpu_module(config=None, sensors_config=None, device="cpu"):
+    """libodometry_estimation_gpu.so: the VGICP keyframe-map odometry."""
+    params = (OdometryEstimationIMUParams.from_config(config, sensors_config)
+              if config is not None else OdometryEstimationIMUParams())
+    return OdometryEstimationIMU(params, device=device)

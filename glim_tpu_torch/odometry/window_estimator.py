@@ -39,6 +39,7 @@ from glim_tpu_torch.ops import gicp, lie, solver
 from glim_tpu_torch.ops import imu as imu_ops
 from glim_tpu_torch.ops.imu import PreintegratedImu
 from glim_tpu_torch.ops.nn_search import nn_search
+from glim_tpu_torch.ops.voxelmap import GaussianVoxelMap, lookup_table
 
 STATE_DIM = 15      # [pose (6), velocity (3), bias (6)]
 OLD_SUBSAMPLE = 4   # older frames keep every 4th point for relinearization
@@ -264,13 +265,12 @@ def window_scan_step(win: WindowState, vms,
     ``imu_packed`` is the (cap+1, 8) per-scan upload: rows 0..cap-1 are IMU
     samples [acc(3), gyro(3), stamp_rel, dt] relative to the scan start; the
     last row is [n_imu, scan_stamp, force_evict, 0...]. ``vms`` is read-only:
+    ``matching="vgicp"`` takes the multi-resolution GaussianVoxelMaps (a
+    tuple, or one map) and matches against every level;
     ``matching="gicp"`` takes one PointVoxelMap and searches the nearest
-    map point (capped at max_corr_dist) with ``nn_search``.
-    ``matching="vgicp"`` (Gaussian voxel maps) is not ported yet."""
-    if matching != "gicp":
-        raise NotImplementedError(
-            f"window_scan_step(matching={matching!r}) is not ported yet; "
-            "glim_tpu_torch runs the GICP odometry only")
+    map point (capped at max_corr_dist) with ``nn_search``."""
+    if matching not in ("gicp", "vgicp"):
+        raise ValueError(f"window_scan_step: unknown matching {matching!r}")
     dev = scan_pts.device
     f32 = torch.float32
 
@@ -284,21 +284,45 @@ def window_scan_step(win: WindowState, vms,
     scan_stamp = meta[1]
     force_evict = meta[2] > 0.5
 
-    pm = vms
-    max_d2 = max_corr_dist * max_corr_dist
+    # lookup_soa gives one correspondence set (mu (3, C), packed C_t (6, C),
+    # hit (C,)) per map level: one for the GICP point map, one per
+    # resolution level for VGICP. The first set's hit mask is the overlap.
+    if matching == "gicp":
+        pm = vms
+        max_d2 = max_corr_dist * max_corr_dist
 
-    def lookup_soa(T_wl, pts, mask):
-        """Nearest map point per scan point, relaid out to SoA."""
-        q = pts @ T_wl[:3, :3].T + T_wl[:3, 3]
-        idx, d2 = nn_search(q, mask, pm.points, pm.mask)
-        idx = idx.to(torch.int64)
-        hit = mask & (d2 < max_d2) & torch.isfinite(d2)
-        return pm.points[idx].T, gicp.sym_pack_soa(pm.covs[idx]), hit
+        def lookup_soa(T_wl, pts, mask):
+            """Nearest map point per scan point, relaid out to SoA."""
+            q = pts @ T_wl[:3, :3].T + T_wl[:3, 3]
+            idx, d2 = nn_search(q, mask, pm.points, pm.mask)
+            idx = idx.to(torch.int64)
+            hit = mask & (d2 < max_d2) & torch.isfinite(d2)
+            return [(pm.points[idx].T, gicp.sym_pack_soa(pm.covs[idx]), hit)]
+    else:
+        levels = (vms,) if isinstance(vms, GaussianVoxelMap) else tuple(vms)
+        # The maps are read-only here: build each level's key table once.
+        tables = [(vm, lookup_table(vm)) for vm in levels]
+        eye4 = torch.eye(4, device=dev)
 
-    def match_soa(T_wl, pts_s, covs_s, corr):
+        def lookup_soa(T_wl, pts, mask):
+            out = []
+            for vm, keys in tables:
+                mu, Ct, hit = gicp.vgicp_lookup(eye4, T_wl, pts, mask, vm, keys)
+                out.append((mu.T, gicp.sym_pack_soa(Ct), hit))
+            return out
+
+    def match_one(T_wl, pts_s, covs_s, corr):
         mu_s, ct_s, hit = corr
         return gicp.linearize_core_soa(T_wl[:3, :3], T_wl[:3, 3], pts_s, covs_s,
                                        mu_s, ct_s, hit, source_only=True)
+
+    def match_soa(T_wl, pts_s, covs_s, corrs):
+        """(H_ss, b_s, error) summed over the correspondence sets."""
+        H, g, e = match_one(T_wl, pts_s, covs_s, corrs[0])
+        for corr in corrs[1:]:
+            Hs, bs, es = match_one(T_wl, pts_s, covs_s, corr)
+            H, g, e = H + Hs, g + bs, e + es
+        return H, g, e
 
     D = W * STATE_DIM
     T_imu_lidar = lie.se3_inv(T_lidar_imu)
@@ -465,14 +489,14 @@ def window_scan_step(win: WindowState, vms,
         g.index_put_((rows6,), gf, accumulate=True)
         err = err + torch.sum(ef)
 
-        # Live matching for the newest state (full resolution).
+        # Live matching for the newest state (full resolution, all levels).
         T_wl_n = T[W - 1] @ T_imu_lidar
         s = (W - 1) * STATE_DIM
         Hs, bs, es = match_soa(T_wl_n, deskewed_s, covs_new_s, corr_new)
         H_live = matching_weight * (Ad.T @ Hs @ Ad)
+        H[s:s + 6, s:s + 6] += H_live
         g[s:s + 6] += matching_weight * (Ad.T @ bs)
         err = err + matching_weight * es
-        H[s:s + 6, s:s + 6] += H_live
 
         if vel_reg is not None:
             # GN of r = v - proj_{|v|<=v_max}(v) on the newest velocity.
@@ -510,7 +534,7 @@ def window_scan_step(win: WindowState, vms,
     corr_fin = lookup_soa(T_wl_fin, sub_pts, sub_mask)
     Hn, gn, en = match_soa(T_wl_fin, deskewed_s[:, ::OLD_SUBSAMPLE],
                            covs_new_s[:, ::OLD_SUBSAMPLE], corr_fin)
-    hit0 = corr_fin[2]
+    hit0 = corr_fin[0][2]            # overlap: the first level's hits
     w_n = OLD_SUBSAMPLE * matching_weight
     mH_r = _set_last(mH_r, w_n * (Ad.T @ Hn @ Ad))
     mg_r = _set_last(mg_r, w_n * (Ad.T @ gn))

@@ -18,9 +18,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from glim_tpu_torch.ops.lie import se3_inv
-from glim_tpu_torch.ops.voxelmap import GaussianVoxelMap, voxelmap_lookup
+from glim_tpu_torch.ops.voxelmap import GaussianVoxelMap, lookup_keys, lookup_table
 
 
 class FactorSystem(NamedTuple):
@@ -82,6 +83,7 @@ def _skew_cols(v: torch.Tensor) -> torch.Tensor:
                         torch.stack([v[1], -v[0], zero])])
 
 
+@record_function("linearize_core_soa")
 def linearize_core_soa(R_rel, t_rel, pts, covs, mu, ct, hit, source_only=False):
     """pts/mu: (3, C); covs/ct: packed symmetric (6, C); hit: (C,) bool.
     Returns (H_tt, H_ts, H_ss, b_t, b_s, error), or only (H_ss, b_s, error)
@@ -122,12 +124,17 @@ def _soa_system(R_rel, t_rel, src_pts, src_covs, mu, C_t, hit) -> FactorSystem:
     return FactorSystem(*out, torch.sum(hit > 0))
 
 
-def vgicp_lookup(T_target, T_source, src_pts, src_mask, vm: GaussianVoxelMap):
-    """Correspondence phase of VGICP: voxel lookup + stats gather.
-    Returns (mu (C, 3), C_t (C, 3, 3), hit (C,))."""
+@record_function("vgicp_lookup")
+def vgicp_lookup(T_target, T_source, src_pts, src_mask, vm: GaussianVoxelMap,
+                 keys=None):
+    """Correspondence phase of VGICP: voxel lookup + stats gather. ``keys``
+    is the map's ``lookup_table``, for callers that look up one map many
+    times. Returns (mu (C, 3), C_t (C, 3, 3), hit (C,))."""
     T_rel = se3_inv(T_target) @ T_source
     q = src_pts @ T_rel[:3, :3].T + T_rel[:3, 3]
-    vidx = voxelmap_lookup(vm, q)
+    if keys is None:
+        keys = lookup_table(vm)
+    vidx = lookup_keys(keys, vm.resolution, q)
     hit = (vidx >= 0) & src_mask
     safe = torch.clamp(vidx, min=0)
     return vm.mean[safe], vm.cov[safe], hit

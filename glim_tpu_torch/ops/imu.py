@@ -15,7 +15,8 @@ from typing import Callable, Tuple
 
 import torch
 
-from glim_tpu_torch.ops.lie import skew, so3_exp, so3_left_jacobian, so3_log
+from glim_tpu_torch.ops.lie import (make_se3, se3_exp, se3_inv, se3_log, skew,
+                                    so3_exp, so3_left_jacobian, so3_log)
 
 
 def _right_jacobian(w: torch.Tensor) -> torch.Tensor:
@@ -199,3 +200,27 @@ def integrate_poses(R0, p0, v0, bias, gravity, acc, gyro, dts, mask):
     dp_inc = v_before * dt[:, None] + 0.5 * a_w * (dt * dt)[:, None]
     ps = p0 + torch.cumsum(dp_inc, 0)
     return Rs, ps, vs
+
+
+def smooth_pose_chain(Rs, ps, mask, sigmas, T_end):
+    """Doubly-anchored IMU pose-chain smoothing (closed form).
+
+    The chain of IMU-integrated poses (Rs (N, 3, 3), ps (N, 3)) starts at
+    the scan pose by construction; the end mismatch xi = log(P_n^-1 T_end)
+    is spread along the chain in proportion to the accumulated Between
+    variance: S_i = P_i * exp(alpha_i * xi), alpha_i = sum_{j<=i} sigma_j^2
+    / sum_j sigma_j^2 (entry 0 ignored). The last valid index stays a (1,)
+    device tensor. Returns (Rs', ps'); invalid lanes pass through."""
+    n = torch.clamp(mask.sum(), min=1)
+    var = torch.where(mask, sigmas * sigmas, 0.0)
+    var = torch.cat([torch.zeros_like(var[:1]), var[1:]])
+    cum = torch.cumsum(var, 0)
+    idx_end = (n - 1).reshape(1)
+    total = torch.clamp(cum.index_select(0, idx_end)[0], min=1e-12)
+    alpha = torch.clamp(cum / total, 0.0, 1.0)
+
+    P_end = make_se3(Rs.index_select(0, idx_end)[0], ps.index_select(0, idx_end)[0])
+    xi = se3_log(se3_inv(P_end) @ T_end)
+    T2 = make_se3(Rs, ps) @ se3_exp(alpha[:, None] * xi)
+    return (torch.where(mask[:, None, None], T2[:, :3, :3], Rs),
+            torch.where(mask[:, None], T2[:, :3, 3], ps))

@@ -131,6 +131,40 @@ def voxelgrid_sampling(points: torch.Tensor, mask: torch.Tensor, resolution,
     return out_pts, out_mask
 
 
+def voxelgrid_sampling_covs(points: torch.Tensor, covs: torch.Tensor,
+                            mask: torch.Tensor, resolution,
+                            out_capacity: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Voxel-grid downsampling that carries per-point covariances: one
+    centroid per occupied voxel with the voxel-mean covariance.
+
+    Voxels past ``out_capacity`` (in sort order) are dropped, as
+    ``jax.ops.segment_sum`` drops segment ids >= num_segments: ``segment_sum``
+    sends them to a dump row that is sliced off.
+    Returns (out_points (C', 3), out_covs (C', 3, 3), out_mask (C',))."""
+    C = points.shape[0]
+    out_c = out_capacity or C
+    coords = voxel_coords(points, 1.0 / resolution)
+    h = torch.where(mask, hash_coords(coords), INVALID_HASH)
+    order = _order_by(h, coords)
+    coords_s, h_s, valid_s = coords[order], h[order], mask[order]
+
+    starts = _segment_starts(h_s, coords_s, valid_s)
+    seg_id = torch.cumsum(starts.to(torch.int64), 0) - 1
+    num_segs = starts.sum()
+
+    # One 13-wide payload: [1, p(3), C(9)].
+    pts_s = points[order]
+    payload = torch.cat([torch.ones_like(pts_s[:, :1]), pts_s,
+                         covs[order].reshape(-1, 9)], dim=1)
+    seg = segment_sum(torch.where(valid_s[:, None], payload, 0.0), seg_id, out_c)
+    cnt = torch.clamp(seg[:, 0], min=1.0)
+    out_pts = seg[:, 1:4] / cnt[:, None]
+    out_covs = seg[:, 4:13].reshape(-1, 3, 3) / cnt[:, None, None]
+    out_mask = (torch.arange(out_c, device=points.device) < num_segs) & (seg[:, 0] > 0)
+    return out_pts, out_covs, out_mask
+
+
 def randomgrid_sampling(points: torch.Tensor, mask: torch.Tensor, resolution,
                         target, prio: torch.Tensor, prio2: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -182,7 +216,8 @@ def cropbox_filter(points: torch.Tensor, mask: torch.Tensor,
 
 def median_distance(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Approximate median range of valid points: the (n_valid // 2)-th
-    sorted distance, invalid lanes pushed to +inf."""
+    sorted distance, invalid lanes pushed to +inf. The index stays a (1,)
+    device tensor, so the result is read without a host sync."""
     d = torch.where(mask, torch.linalg.norm(points, dim=-1), float("inf"))
     d_s = torch.sort(d).values
-    return d_s[torch.clamp(mask.sum() // 2, min=0)]
+    return d_s.index_select(0, torch.clamp(mask.sum() // 2, min=0).reshape(1))[0]

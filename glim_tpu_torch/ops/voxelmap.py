@@ -12,9 +12,10 @@ significant first), since the stored order decides later tie-breaks.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
+from torch.profiler import record_function
 
 from glim_tpu_torch.ops.pointops import (INVALID_HASH, hash_coords,
                                          hash_coords2, segment_max,
@@ -62,12 +63,26 @@ class GaussianVoxelMap:
 
 
 def empty_gaussian_voxelmap(capacity: int, resolution, device="cpu") -> GaussianVoxelMap:
+    """``resolution`` is a float or a 0-dim tensor; a tensor already on
+    ``device`` is kept as it is, and a float is filled on the device, so
+    neither reads from nor uploads through the host."""
     z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
+    if isinstance(resolution, torch.Tensor):
+        res = resolution.to(device=device, dtype=torch.float32)
+    else:
+        res = torch.full((), float(resolution), dtype=torch.float32, device=device)
     return GaussianVoxelMap(
         hash=torch.full((capacity,), INVALID_HASH, dtype=torch.int32, device=device),
         coords=z(capacity, 3, dt=torch.int32), mean=z(capacity, 3),
         cov=z(capacity, 3, 3), count=z(capacity), age=z(capacity, dt=torch.int32),
-        resolution=torch.as_tensor(resolution, dtype=torch.float32, device=device))
+        resolution=res)
+
+
+def stack_voxelmaps(vms) -> GaussianVoxelMap:
+    """K maps of one capacity as one map whose fields carry a leading K axis
+    (the JAX package vmaps over such a stack)."""
+    return GaussianVoxelMap(*(torch.stack([getattr(vm, f.name) for vm in vms])
+                              for f in fields(GaussianVoxelMap)))
 
 
 def _sorted_reduce(hashes, hashes2, coords, weights, w_mean, w_cov, ages, capacity):
@@ -100,6 +115,7 @@ def _sorted_reduce(hashes, hashes2, coords, weights, w_mean, w_cov, ages, capaci
             seg_sum[:, 1:4], seg_sum[:, 4:13].reshape(-1, 3, 3), seg_age)
 
 
+@record_function("voxelmap_insert")
 def voxelmap_insert(vm: GaussianVoxelMap, points: torch.Tensor, mask: torch.Tensor,
                     covs: torch.Tensor, step) -> GaussianVoxelMap:
     """Merge a padded point batch (+covs) into the map; ``step`` is the LRU
@@ -140,30 +156,44 @@ def voxelmap_insert(vm: GaussianVoxelMap, points: torch.Tensor, mask: torch.Tens
 
 
 def lookup_table(vm: GaussianVoxelMap) -> torch.Tensor:
-    """(V, 2) double-hash key table for lookup_keys."""
+    """(..., V, 2) double-hash key table for lookup_keys; a stack of maps
+    (leading K axis, ``stack_voxelmaps``) gives one table per map."""
     t_h2 = torch.where(vm.valid, hash_coords2(vm.coords), INVALID_HASH)
-    return torch.stack([vm.hash, t_h2], dim=1)
+    return torch.stack([vm.hash, t_h2], dim=-1)
 
 
 def lookup_keys(keys: torch.Tensor, resolution, points: torch.Tensor) -> torch.Tensor:
-    """(Q, 3) query points against a (V, 2) key table -> (Q,) voxel index or -1."""
-    q_coords = voxel_coords(points, 1.0 / resolution)
+    """(..., Q, 3) query points against (..., V, 2) key tables, batch row b
+    against table b, at the per-table ``resolution`` tensor (...) -> (..., Q)
+    voxel index or -1. One batched binary search and one gather per probe."""
+    q_coords = voxel_coords(points, (1.0 / resolution)[..., None, None])
     q_hash = hash_coords(q_coords)
     q_h2 = hash_coords2(q_coords)
-    base = torch.searchsorted(keys[:, 0].contiguous(), q_hash, right=False)
+    t_hash = keys[..., 0].contiguous()
+    t_h2 = keys[..., 1]
+    base = torch.searchsorted(t_hash, q_hash, right=False)
     found = torch.full(q_hash.shape, -1, dtype=torch.int64, device=points.device)
-    V = keys.shape[0]
+    V = keys.shape[-2]
     for w in range(_PROBE):
         idx = torch.clamp(base + w, max=V - 1)
-        kr = keys[idx]
-        hit = (kr[:, 0] == q_hash) & (kr[:, 1] == q_h2)
+        hit = (t_hash.gather(-1, idx) == q_hash) & (t_h2.gather(-1, idx) == q_h2)
         found = torch.where((found < 0) & hit, idx, found)
     return found
 
 
 def voxelmap_lookup(vm: GaussianVoxelMap, points: torch.Tensor) -> torch.Tensor:
-    """(Q, 3) query points -> (Q,) voxel index or -1."""
+    """(..., Q, 3) query points -> (..., Q) voxel index or -1; a stacked
+    map (leading K axis) looks up query row k in map k."""
     return lookup_keys(lookup_table(vm), vm.resolution, points)
+
+
+def voxelmap_overlap(vm: GaussianVoxelMap, points: torch.Tensor, mask: torch.Tensor,
+                     T: torch.Tensor) -> torch.Tensor:
+    """Fraction of valid points whose T-transformed position hits an
+    occupied voxel (0-dim f32, stays on the device)."""
+    p = points @ T[:3, :3].T + T[:3, 3]
+    hits = (voxelmap_lookup(vm, p) >= 0) & mask
+    return hits.sum() / torch.clamp(mask.sum(), min=1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,17 @@
 """GlimTorch: the config-driven front of the PyTorch port.
 
 Twin of ``glim_tpu/pipeline.py::GlimTPU`` in synchronous mode: reads
-config.json, builds the time keeper, the preprocessor and the configured
-odometry module on ``device``, and exposes ``insert_imu`` / ``insert_frame``
-/ ``wait`` / ``odometry_estimates``.
+config.json, builds the time keeper, the preprocessor, the configured
+odometry module and the configured sub-mapping module on ``device``, and
+exposes ``insert_imu`` / ``insert_frame`` / ``wait`` / ``odometry_estimates``
+/ ``submaps``. Frames marginalized out of the odometry window go to
+sub-mapping, as in ``GlimTPU``'s synchronous path.
 
-Sub-mapping and global mapping are not built yet: the odometry path (time
-keeper -> CloudPreprocessor -> odometry_estimation_cpu with GICP) is the
-whole of this pipeline, and marginalized frames are dropped. Neither are the
-async worker threads (``async_mode=True``) or extension modules. An odometry
-module the port lacks (for example ``libodometry_estimation_gpu.so``)
-raises, naming the module; it is never swapped for another.
+Global mapping is not built yet: the submaps are kept in ``submaps``. The
+async worker threads (``async_mode=True``) and extension modules are not
+ported either. A module the port lacks (for example
+``libsub_mapping_passthrough.so``) raises, naming the module; it is never
+swapped for another.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from glim_tpu_torch.mapping.sub_mapping_base import SubMappingBase
 from glim_tpu_torch.odometry.estimation_base import OdometryEstimationBase
 from glim_tpu_torch.preprocess.cloud_preprocessor import (CloudPreprocessor,
                                                           CloudPreprocessorParams)
-from glim_tpu_torch.types import EstimationFrame, RawPoints
+from glim_tpu_torch.types import EstimationFrame, RawPoints, SubMap
 from glim_tpu_torch.utils.config import GlobalConfig, create_default_config_dir
 from glim_tpu_torch.utils.data_validator import DataValidator
 from glim_tpu_torch.utils.logging import create_module_logger
@@ -35,7 +38,8 @@ logger = create_module_logger("glim")
 
 
 class GlimTorch:
-    """LiDAR-IMU odometry pipeline: scans + IMU in, odometry estimates out."""
+    """LiDAR-IMU odometry and sub-mapping: scans + IMU in, odometry
+    estimates and submaps out."""
 
     def __init__(self, config_path: Optional[str] = None,
                  async_mode: bool = False, device="cpu",
@@ -67,13 +71,19 @@ class GlimTorch:
         self.keep_raw_points = bool(ros_cfg.param("glim_ros", "keep_raw_points", False))
 
         odo_cfg = self.config.get_config("config_odometry")
-        so_name = odo_cfg.param("odometry_estimation", "so_name",
-                                "libodometry_estimation_cpu.so")
         self.odometry = OdometryEstimationBase.load_module(
-            so_name, odo_cfg, sensors_config=sensors, device=self.device)
-        logger.info("glim_tpu_torch: odometry only — sub-mapping and global "
-                    "mapping are not built yet")
+            odo_cfg.param("odometry_estimation", "so_name", "libodometry_estimation_cpu.so"),
+            odo_cfg, sensors_config=sensors, device=self.device)
+        sub_cfg = self.config.get_config("config_sub_mapping")
+        self.sub_mapping = SubMappingBase.load_module(
+            sub_cfg.param("sub_mapping", "so_name", "libsub_mapping.so"), sub_cfg,
+            device=self.device)
+        glb_cfg = self.config.get_config("config_global_mapping")
+        logger.info("glim_tpu_torch: global mapping (%s) is not built yet; submaps "
+                    "are kept in GlimTorch.submaps",
+                    glb_cfg.param("global_mapping", "so_name", "libglobal_mapping.so"))
         self._sync_estimates: List[EstimationFrame] = []
+        self._submaps: List[SubMap] = []
 
     # -- input --
 
@@ -81,30 +91,48 @@ class GlimTorch:
         self.data_validator.imu_callback(stamp, linear_acc, angular_vel)
         if not self.time_keeper.validate_imu_stamp(stamp):
             return
-        self.odometry.insert_imu(stamp, np.asarray(linear_acc), np.asarray(angular_vel))
+        linear_acc, angular_vel = np.asarray(linear_acc), np.asarray(angular_vel)
+        self.odometry.insert_imu(stamp, linear_acc, angular_vel)
+        self.sub_mapping.insert_imu(stamp, linear_acc, angular_vel)
 
     def insert_frame(self, raw: RawPoints) -> None:
         self.data_validator.points_callback(raw)
         if not self.time_keeper.process(raw):
             logger.warning("dropping scan at %.6f", raw.stamp)
             return
-        frame = self.preprocessor.preprocess(raw)
+        with record_function("preprocess"):
+            frame = self.preprocessor.preprocess(raw)
         if not self.keep_raw_points:
             frame.raw_points = None
-        est = self.odometry.insert_frame(frame, [])
+        marginalized: List[EstimationFrame] = []
+        with record_function("odometry"):
+            est = self.odometry.insert_frame(frame, marginalized)
         if est is not None:
             self._sync_estimates.append(est)
             self.trajectory.add_odom(est.stamp, est.T_world_sensor())
+        with record_function("sub_mapping"):
+            for m in marginalized:
+                # The state copy lands while sub-mapping dispatches its work.
+                m.fetch_state_async()
+                self.sub_mapping.insert_frame(m)
+            self._submaps.extend(self.sub_mapping.get_submaps())
 
     # -- control --
 
     def wait(self) -> None:
-        """Flush the pipeline (end of sequence): final window poses are
-        written back into the estimates still in the window."""
-        self.odometry.get_remaining_frames()
+        """Flush the pipeline (end of sequence): the frames still in the
+        odometry window, with their final poses, go to sub-mapping, which
+        closes its last submap."""
+        for m in self.odometry.get_remaining_frames():
+            self.sub_mapping.insert_frame(m)
+        self._submaps.extend(self.sub_mapping.submit_end_of_sequence())
 
     # -- output --
 
     @property
     def odometry_estimates(self) -> List[EstimationFrame]:
         return self._sync_estimates
+
+    @property
+    def submaps(self) -> List[SubMap]:
+        return self._submaps

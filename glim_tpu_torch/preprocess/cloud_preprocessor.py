@@ -19,7 +19,7 @@ import torch
 from glim_tpu_torch.native import pack_scan_i16
 from glim_tpu_torch.ops import covariance, knn, pointops
 from glim_tpu_torch.preprocess.callbacks import PreprocessCallbacks
-from glim_tpu_torch.types import PreprocessedFrame, RawPoints, capacity_for
+from glim_tpu_torch.types import PreprocessedFrame, RawPoints, capacity_for, upload
 from glim_tpu_torch.utils.logging import create_module_logger
 
 logger = create_module_logger("preprocess")
@@ -186,8 +186,8 @@ class CloudPreprocessor:
             target = max(512, int(n * p.random_downsample_rate))
             out_cap = capacity_for(target)
 
-        dev = torch.from_numpy(packed).to(self.device)
-        meta = torch.from_numpy(np.array([n, t_scale, target], np.float32)).to(self.device)
+        dev = upload(packed, self.device)
+        meta = upload(np.array([n, t_scale, target], np.float32), self.device)
         prio = torch.rand(cap, generator=self._gen, device=self.device)
         prio2 = torch.rand(cap, generator=self._gen, device=self.device)
         c = self._d_const

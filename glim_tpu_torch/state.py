@@ -1,7 +1,8 @@
 """Carried state between the JAX package and the port, as numpy dicts.
 
-The odometry has no weights; its carried state is the sliding window and the
-map. These functions turn a state given as a dict of numpy arrays (one entry
+The odometry has no weights; its carried state is the sliding window, the
+map (a point map, or a tuple of Gaussian voxel-map levels) and the keyframe
+store. These functions turn a state given as a dict of numpy arrays (one entry
 per dataclass field, the window's ``preints`` as a nested dict) into the
 port's tensors on ``device``, and back. Floating arrays become float32,
 integer arrays int32, booleans stay boolean, so a float64 numpy state is not
@@ -11,14 +12,15 @@ silently kept as float64 in torch.
 from __future__ import annotations
 
 from dataclasses import fields
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from glim_tpu_torch.odometry.keyframe_manager import KeyframeStore
 from glim_tpu_torch.odometry.window_estimator import WindowState
 from glim_tpu_torch.ops.imu import PreintegratedImu
-from glim_tpu_torch.ops.voxelmap import PointVoxelMap
+from glim_tpu_torch.ops.voxelmap import GaussianVoxelMap, PointVoxelMap
 from glim_tpu_torch.types import to_numpy
 
 
@@ -30,7 +32,7 @@ def _tensor(a, device) -> torch.Tensor:
         dt = np.int32
     else:
         dt = np.float32
-    return torch.as_tensor(np.asarray(a, dt, order="C"), device=device)
+    return torch.as_tensor(np.array(a, dt, order="C"), device=device)
 
 
 def _from_numpy(cls, d: Dict[str, np.ndarray], device, nested=()):
@@ -76,3 +78,31 @@ def point_voxelmap_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> PointVo
 
 def point_voxelmap_to_numpy(pm: PointVoxelMap) -> Dict[str, np.ndarray]:
     return _to_numpy(pm)
+
+
+def gaussian_voxelmap_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> GaussianVoxelMap:
+    """One map, or a stack of maps when every field has a leading axis."""
+    return _from_numpy(GaussianVoxelMap, d, device)
+
+
+def gaussian_voxelmap_to_numpy(vm: GaussianVoxelMap) -> Dict[str, np.ndarray]:
+    return _to_numpy(vm)
+
+
+def voxelmap_levels_from_numpy(levels, device="cpu") -> Tuple[GaussianVoxelMap, ...]:
+    """The multi-resolution model: a sequence of per-level dicts."""
+    return tuple(gaussian_voxelmap_from_numpy(d, device) for d in levels)
+
+
+def voxelmap_levels_to_numpy(levels) -> Tuple[Dict[str, np.ndarray], ...]:
+    return tuple(gaussian_voxelmap_to_numpy(vm) for vm in levels)
+
+
+def keyframe_store_from_numpy(d: Dict, device="cpu") -> KeyframeStore:
+    """All KeyframeStore fields; ``d["vm"]`` is the stacked mini maps' dict."""
+    return _from_numpy(KeyframeStore, d, device,
+                       nested={"vm": gaussian_voxelmap_from_numpy})
+
+
+def keyframe_store_to_numpy(store: KeyframeStore) -> Dict:
+    return _to_numpy(store, nested={"vm": gaussian_voxelmap_to_numpy})

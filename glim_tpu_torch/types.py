@@ -8,9 +8,10 @@ lazily with ``.detach().cpu().numpy()`` on first access.
 
 from __future__ import annotations
 
+import copy
 import enum
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -26,9 +27,50 @@ def capacity_for(n: int, minimum: int = 512) -> int:
 
 def to_numpy(t, dtype=None) -> np.ndarray:
     """Host copy of a tensor (or pass-through for numpy input)."""
-    if isinstance(t, torch.Tensor):
+    if isinstance(t, HostCopy):
+        t = t.numpy()
+    elif isinstance(t, torch.Tensor):
         t = t.detach().cpu().numpy()
     return np.asarray(t, dtype) if dtype is not None else np.asarray(t)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """Host array -> tensor on ``device``. To a CUDA device the copy goes
+    through pinned memory and is queued on the stream, so the host does not
+    wait for it (a copy from pageable memory would)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class HostCopy:
+    """A device -> host copy that lands in the background.
+
+    On a CUDA tensor the copy goes to pinned host memory behind a recorded
+    event: ``ready()`` asks the event without waiting, ``numpy()`` waits for
+    the event and then reads (reading pinned memory before the copy has
+    landed would return stale numbers silently). A CPU tensor is always
+    ready."""
+
+    def __init__(self, t: torch.Tensor):
+        t = t.detach()
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
 
 
 @dataclass
@@ -132,6 +174,7 @@ class EstimationFrame:
                  frame_id: FrameID = FrameID.LIDAR,
                  frame: Optional[PointBatch] = None,
                  raw_frame: Optional[PreprocessedFrame] = None,
+                 voxelmaps: Optional[List[Any]] = None,
                  custom_data: Optional[Dict[str, Any]] = None):
         self.id = id
         self.stamp = stamp
@@ -152,7 +195,10 @@ class EstimationFrame:
         self.frame_id = frame_id
         self.frame = frame
         self.raw_frame = raw_frame
+        self.voxelmaps = [] if voxelmaps is None else voxelmaps
         self.custom_data = {} if custom_data is None else custom_data
+        # In-flight packed-state copy: (HostCopy, need_T, need_v, need_b).
+        self._state_pending = None
 
     @property
     def T_world_lidar(self) -> np.ndarray:
@@ -219,9 +265,100 @@ class EstimationFrame:
     def v_world_imu(self, v) -> None:
         self._v_world_imu = np.asarray(v, np.float64)
 
+    def _pack_state(self):
+        """The packed 25-float device state [T_world_lidar (16), v (3),
+        bias (6)] and which parts are missing from the host caches, or None
+        when nothing is missing."""
+        need_T = self._T_world_lidar is None and self.device_T_world_lidar is not None
+        need_v = self._v_world_imu is None and self.device_v_world_imu is not None
+        need_b = self._imu_bias is None and self.device_imu_bias is not None
+        if not (need_T or need_v or need_b):
+            return None
+        dev = next(t.device for t, need in ((self.device_T_world_lidar, need_T),
+                                            (self.device_v_world_imu, need_v),
+                                            (self.device_imu_bias, need_b)) if need)
+        part = lambda t, need, n: (t.reshape(-1).to(torch.float32) if need
+                                   else torch.zeros(n, device=dev))
+        packed = torch.cat([part(self.device_T_world_lidar, need_T, 16),
+                            part(self.device_v_world_imu, need_v, 3),
+                            part(self.device_imu_bias, need_b, 6)])
+        return packed, need_T, need_v, need_b
+
+    def fetch_state_async(self) -> None:
+        """Start the device -> host copy of the packed state; a later
+        ``fetch_state()`` reads it when it has landed."""
+        if self._state_pending is not None:
+            return
+        ps = self._pack_state()
+        if ps is not None:
+            self._state_pending = (HostCopy(ps[0]),) + ps[1:]
+
+    def fetch_state(self) -> None:
+        """Fill the pose/velocity/bias host caches from one packed copy
+        (the one ``fetch_state_async`` started, if any); no-op for values
+        already cached."""
+        ps = self._state_pending
+        if ps is None:
+            ps = self._pack_state()
+            if ps is None:
+                return
+            ps = (HostCopy(ps[0]),) + ps[1:]
+        self._state_pending = None
+        host, need_T, need_v, need_b = ps
+        packed = np.asarray(host.numpy(), np.float64)
+        if need_T and self._T_world_lidar is None:
+            self._T_world_lidar = packed[:16].reshape(4, 4)
+        if need_v and self._v_world_imu is None:
+            self._v_world_imu = packed[16:19]
+        if need_b and self._imu_bias is None:
+            self._imu_bias = packed[19:25]
+
     def T_world_sensor(self) -> np.ndarray:
         if self.frame_id == FrameID.LIDAR:
             return self.T_world_lidar
         if self.frame_id == FrameID.IMU:
             return self.T_world_imu
         return np.eye(4)
+
+    def set_T_world_sensor(self, T: np.ndarray) -> None:
+        if self.frame_id == FrameID.LIDAR:
+            self.T_world_lidar = T
+            self.T_world_imu = T @ self.T_lidar_imu
+        elif self.frame_id == FrameID.IMU:
+            self.T_world_imu = T
+            self.T_world_lidar = T @ np.linalg.inv(self.T_lidar_imu)
+        else:
+            raise ValueError("cannot set world pose for WORLD frame")
+
+    def clone(self) -> "EstimationFrame":
+        return copy.copy(self)
+
+    def clone_wo_points(self) -> "EstimationFrame":
+        c = self.clone()
+        c.frame = None
+        c.raw_frame = None
+        c.voxelmaps = []
+        return c
+
+
+@dataclass
+class SubMap:
+    """A bundle of optimized frames merged into one map node."""
+
+    id: int = -1
+    session_id: int = 0
+
+    T_world_origin: np.ndarray = field(default_factory=lambda: np.eye(4))
+    T_origin_endpoint_L: np.ndarray = field(default_factory=lambda: np.eye(4))
+    T_origin_endpoint_R: np.ndarray = field(default_factory=lambda: np.eye(4))
+
+    frame: Optional[PointBatch] = None       # merged + downsampled points
+    voxelmaps: List[Any] = field(default_factory=list)
+
+    frames: List[EstimationFrame] = field(default_factory=list)       # optimized
+    odom_frames: List[EstimationFrame] = field(default_factory=list)  # raw odometry
+    custom_data: Dict[str, Any] = field(default_factory=dict)
+
+    def drop_frame_points(self) -> None:
+        self.frames = [f.clone_wo_points() for f in self.frames]
+        self.odom_frames = [f.clone_wo_points() for f in self.odom_frames]

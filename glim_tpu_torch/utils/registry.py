@@ -63,7 +63,9 @@ def register_module(kind: str, name: str) -> Callable[[Callable], Callable]:
 def _ensure_builtins_imported(kind: str) -> None:
     # Lazy import of the built-in implementations so registry lookups work
     # without the caller importing every pipeline module.
-    mods = {"odometry": ["glim_tpu_torch.odometry.odometry_estimation_cpu_imu"]}
+    mods = {"odometry": ["glim_tpu_torch.odometry.odometry_estimation_imu",
+                         "glim_tpu_torch.odometry.odometry_estimation_cpu_imu"],
+            "sub_mapping": ["glim_tpu_torch.mapping.sub_mapping"]}
     for m in mods.get(kind, []):
         importlib.import_module(m)
 

@@ -66,9 +66,9 @@ def _drive(glim, seq):
 
 
 class _NoMapping:
-    """Stand-in for GlimTPU's sub-mapping and global-mapping stages, which
-    the port does not have yet: odometry estimates do not depend on them,
-    and leaving them out keeps the comparison on the same path."""
+    """Stand-in for GlimTPU's sub-mapping and global-mapping stages:
+    odometry estimates do not depend on them (sub-mapping is compared in
+    tests/test_torch_sub_mapping.py and test_torch_default_slice.py)."""
 
     def insert_imu(self, *a):
         pass
@@ -122,7 +122,11 @@ def test_glim_torch_matches_glim_tpu(tmp_path):
 
 def test_import_isolation():
     """glim_tpu_torch and its pipeline load neither JAX nor glim_tpu."""
-    code = ("import sys, glim_tpu_torch, glim_tpu_torch.pipeline, glim_tpu_torch.state; "
+    code = ("import sys, glim_tpu_torch, glim_tpu_torch.pipeline, glim_tpu_torch.state, "
+            "glim_tpu_torch.odometry.keyframe_manager, glim_tpu_torch.mapping.sub_mapping; "
+            "from glim_tpu_torch.utils.registry import available_modules; "
+            "assert 'odometry_estimation_gpu' in available_modules('odometry'); "
+            "assert 'sub_mapping' in available_modules('sub_mapping'); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'glim_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -160,17 +164,41 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_unported_configurations_raise(tmp_path):
+    """Each configuration the port lacks raises, naming itself."""
     from glim_tpu_torch.odometry.odometry_estimation_cpu_imu import (
         OdometryEstimationCPUIMU, OdometryEstimationCPUIMUParams)
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.utils.config import create_default_config_dir
 
-    with pytest.raises(NotImplementedError, match="libodometry_estimation_gpu.so"):
-        GlimTorch(create_default_config_dir(str(tmp_path / "default")))
+    cfg = create_default_config_dir(str(tmp_path / "default"))
+    for logical, module, name, value, match in (
+            ("config", "global", "config_odometry", "config_odometry_ct.json",
+             "libodometry_estimation_ct.so"),
+            ("config", "global", "config_sub_mapping", "config_sub_mapping_passthrough.json",
+             "libsub_mapping_passthrough.so"),
+            ("config_sub_mapping", "sub_mapping", "enable_optimization", True,
+             "enable_optimization"),
+            ("config_sub_mapping", "sub_mapping", "create_between_factors", True,
+             "create_between_factors")):
+        path = os.path.join(cfg, f"{logical}.json")
+        if logical == "config_sub_mapping":
+            path = os.path.join(cfg, "config_sub_mapping_gpu.json")
+        with open(path) as f:
+            data = json.load(f)
+        before = data[module][name]
+        data[module][name] = value
+        with open(path, "w") as f:
+            json.dump(data, f)
+        with pytest.raises(NotImplementedError, match=match):
+            GlimTorch(cfg)
+        data[module][name] = before
+        with open(path, "w") as f:
+            json.dump(data, f)
     with pytest.raises(NotImplementedError, match="VGICP"):
         OdometryEstimationCPUIMU(OdometryEstimationCPUIMUParams(registration_type="VGICP"))
     with pytest.raises(NotImplementedError, match="async"):
-        GlimTorch(str(tmp_path / "default"), async_mode=True)
+        GlimTorch(cfg, async_mode=True)
+    GlimTorch(cfg)                      # the default configuration builds
 
 
 @pytest.fixture
