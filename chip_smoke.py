@@ -1,17 +1,27 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [DIR]   # profile of the default configuration
+    python3 chip_smoke.py                   # the smoke run below
+    python3 chip_smoke.py --nn-v1 SRC       # ... with phase 3's A/B against SRC
+    python3 chip_smoke.py --profile [DIR]   # profiles of three configurations
 
 Phases (any failure exits non-zero):
   1. print the card (name and power limit as nvidia-smi reports them) and
      the software versions;
   2. build the nn_search CUDA kernel from glim_tpu_torch/csrc and hold it
      against its plain PyTorch version at the main path's shapes (16384 and
-     4096 queries against 131072 targets, ~30% masked), a ragged case and a
-     duplicate-target case;
-  3. time kernel and plain version at 16384 x 131072 with CUDA events, in
-     turns (plain, kernel, kernel, plain);
+     4096 queries against 131072 targets, ~30% masked), a ragged case, the
+     duplicate-target cases (the lowest index must win: across the split
+     boundary that the launch geometry picks at Q=16384, and inside one
+     thread's register-tiled query rows) and a Q=4096 set with one valid
+     target;
+  3. time kernel and plain version at both main-path shapes with CUDA
+     events, in turns (plain, kernel, kernel, plain), each beside its bound
+     (valid pairs x 8 flops over the FP32 peak; bytes over the memory rate)
+     and its share of it, then the host time to enqueue a call (and, at
+     Q=16384, the SM clock nvidia-smi reads during 4000 calls). ``--nn-v1
+     SRC`` also builds the one-thread-per-query kernel of the first port
+     from SRC (its C interface) and times it in the same turns (plain, v1,
+     kernel, kernel, v1, plain);
   4. drive the GICP LiDAR-IMU odometry slice through GlimTorch on the card:
      config_odometry_cpu.json at its defaults, then sub-mapping, 150
      synthetic scans of 65,536 points with 200 Hz IMU; check the kernel
@@ -34,7 +44,8 @@ over scans 60-79 (the 48-state window is full and sub-mapping busy from
 about scan 58), one ``torch.profiler`` window over scans 80-89 and one
 ``torch.cuda.set_sync_debug_mode("warn")`` count over scans 90-94; it
 writes the tables to DIR/profile_default.txt (DIR defaults to build/).
-It then does the same for phase 5b's eviction run (DIR/profile_evict.txt).
+It then does the same for phase 5b's eviction run (DIR/profile_evict.txt)
+and for phase 4's GICP slice (DIR/profile_gicp.txt).
 
 ``run_slice`` and ``run_default`` are importable and run on any device (the
 CPU tests rehearse them at a tiny size); ``main`` requires a CUDA device.
@@ -106,9 +117,10 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
 
 def run_slice(device, n_scans: int = 150, n_scan_points: int = 65536,
               scene_points: int = 400000, seed: int = 0,
-              odometry_overrides=None, preprocess_overrides=None) -> dict:
+              odometry_overrides=None, preprocess_overrides=None, on_scan=None) -> dict:
     """Run GlimTorch (sync, config_odometry_cpu.json) over a synthetic
-    sequence at 10 Hz scans / 200 Hz IMU; returns the run's metrics."""
+    sequence at 10 Hz scans / 200 Hz IMU; returns the run's metrics.
+    ``on_scan(i)`` runs before scan i."""
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.utils.config import create_default_config_dir
 
@@ -131,7 +143,7 @@ def run_slice(device, n_scans: int = 150, n_scan_points: int = 65536,
 
     seq = _sequence(n_scans, n_scan_points, scene_points, seed)
     glim = GlimTorch(cfg_dir, async_mode=False, device=dev)
-    return _timed_run(glim, seq, dev)
+    return _timed_run(glim, seq, dev, on_scan)
 
 
 def _feed(glim, seq, on_scan=None):
@@ -235,7 +247,11 @@ def _compare(name, q, qm, t, tm, nn_search, nn_search_plain):
     decisive = valid & (_runner_up_gap(q, qm, t, tm) > bound)
     same = idx_k == idx_p
     if not bool((err <= bound).all()):
-        raise AssertionError(f"{name}: d2 disagrees, max err {float(err.max())}")
+        w = int(torch.argmax(err - bound))
+        raise AssertionError(
+            f"{name}: d2 disagrees, max err {float(err.max())}; worst query {w}: d2 "
+            f"{float(d2_k[w])} (kernel) / {float(d2_p[w])} (plain), idx {int(idx_k[w])} / "
+            f"{int(idx_p[w])}, |q|^2 {float((q[w] * q[w]).sum())}")
     if not bool(same[decisive].all()):
         raise AssertionError(f"{name}: {int((~same & decisive).sum())} decisive index mismatches")
     if not bool((idx_k[~qm] == 0).all() and torch.isinf(d2_k[~qm]).all()):
@@ -255,6 +271,207 @@ def _time(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _host_us(fn, n):
+    """Host time to enqueue one call (us), the card's queue left to drain."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _sm_clock_under(fn, n):
+    """The SM clocks (MHz) that nvidia-smi samples while ``fn`` runs n times."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                            "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.3)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    return [int(v) for v in smi.communicate()[0].split()]
+
+
+def check_nn_search() -> float:
+    """Phase 2: build the kernel, then hold it against the plain version at
+    the main path's shapes, a ragged case, the duplicate cases (ties must go
+    to the lowest index: inside one chunk, across chunks, across the split
+    boundary that the launch geometry picks, and inside one thread's query
+    rows) and a query set with one valid target. Returns the max |d2 error|."""
+    from glim_tpu_torch.ops import nn_search as nn
+    from glim_tpu_torch.utils import cuda_build
+
+    search, plain = nn.nn_search, nn.nn_search_plain
+    t0 = time.perf_counter()
+    search(*_nn_case(torch.Generator(device="cuda").manual_seed(9), 256, 2048))
+    torch.cuda.synchronize()
+    print(f"nn_search kernel built and launched in {time.perf_counter() - t0:.2f} s")
+    for line in cuda_build.build_logs.get("nn_search", "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print("  ptxas:", line.strip())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    max_err = 0.0
+    for name, Q, N in (("main Q=16384 N=131072", 16384, 131072),
+                       ("main Q=4096 N=131072", 4096, 131072),
+                       ("ragged Q=1000 N=3001", 1000, 3001)):
+        max_err = max(max_err, _compare(name, *_nn_case(gen, Q, N), search, plain))
+
+    def lowest_wins(name, case, rows, want):
+        max_err = _compare(name, *case, search, plain)
+        idx_k, _ = search(*case)
+        if not bool((idx_k[rows] == want).all()):
+            raise AssertionError(f"{name}: the lowest index must win")
+        print(f"nn_search {name}: lowest index returned for all {len(rows)} duplicated targets")
+        return max_err
+
+    dev = torch.device("cuda")
+    q, qm, t, tm = _nn_case(gen, 512, 4096, masked=0.0)
+    t[2000:2100] = t[100:200]
+    q[:100] = t[100:200]
+    qm[:] = True
+    max_err = max(max_err, lowest_wins("duplicates Q=512 N=4096", (q, qm, t, tm),
+                                       torch.arange(100, device=dev),
+                                       torch.arange(100, 200, device=dev)))
+    # The duplicated targets below lie within 2.5 m of the origin: a query
+    # on a target has d2 = 0, where the plain version's cancellation error
+    # (a few ulp of 2|t|^2) must stay under REL_TOL.
+    # Both copies of 64 targets on either side of the middle split boundary.
+    _, splits, split_len = nn.launch_geometry(16384, 131072, nn._sm_count(0))
+    b = split_len * (splits // 2)
+    q, qm, t, tm = _nn_case(gen, 16384, 131072)
+    t[b - 64:b] *= 0.25
+    t[b:b + 64] = t[b - 64:b]
+    tm[b - 64:b + 64] = True
+    q[:64] = t[b - 64:b]
+    qm[:64] = True
+    max_err = max(max_err, lowest_wins(
+        f"duplicates across split boundary {b} (S={splits})", (q, qm, t, tm),
+        torch.arange(64, device=dev), torch.arange(b - 64, b, device=dev)))
+    # One thread's query rows (block 3, thread 5): row r's target a_r has
+    # copies at a_r + 1 and a_r + 3 (its chunk) and a_r + 11 (the next);
+    # the last row asks for row 0's target.
+    rows = (3 * nn.QUERIES_PER_BLOCK + 5
+            + nn.QUERY_THREADS * torch.arange(nn.QUERY_ROWS, device=dev))
+    a = 70000 + 16 * torch.arange(nn.QUERY_ROWS, device=dev)
+    q, qm, t, tm = _nn_case(gen, 16384, 131072)
+    t[a] *= 0.25
+    for off in (1, 3, 11):
+        t[a + off] = t[a]
+        tm[a + off] = True
+    tm[a] = True
+    want = a.clone()
+    want[-1] = a[0]
+    q[rows] = t[want]
+    qm[rows] = True
+    max_err = max(max_err, lowest_wins("duplicates in one thread's query rows",
+                                       (q, qm, t, tm), rows, want))
+    # Every target masked but one.
+    q, qm, t, tm = _nn_case(gen, 4096, 131072)
+    tm[:] = False
+    tm[77777] = True
+    max_err = max(max_err, lowest_wins("one valid target Q=4096 N=131072", (q, qm, t, tm),
+                                       torch.nonzero(qm).flatten(), 77777))
+    return max_err
+
+
+def _nn_search_v1(src):
+    """The one-thread-per-query kernel of the first port (its C interface
+    and its wrapper's packing), built from ``src`` for an A/B in one call."""
+    import ctypes
+
+    from glim_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load_kernel_library("nn_search_v1", src)
+    lib.glim_nn_search.restype = ctypes.c_int
+    lib.glim_nn_search.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                                   + [ctypes.c_void_p] * 3)
+
+    def run(q, qm, t, tm):
+        t_sq = torch.where(tm, torch.sum(t * t, dim=-1), float("inf"))
+        xyzw = torch.cat([t, t_sq[:, None]], dim=1).contiguous()
+        idx = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+        d2 = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
+        rc = lib.glim_nn_search(q.data_ptr(), qm.data_ptr(), xyzw.data_ptr(), q.shape[0],
+                                t.shape[0], idx.data_ptr(), d2.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"nn_search v1 launch failed ({rc})")
+        return idx, d2
+    return run
+
+
+# The H100's published peaks (SXM, 700 W): FP32 outside the tensor cores and
+# HBM3. nn_search costs 8 flops a (valid query, valid target) pair.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+NN_FLOPS_PER_PAIR = 8
+
+
+def nn_bound_ms(q, qm, t, tm):
+    """Least time for the search on these inputs: each input read and each
+    output written once, over the memory rate, against the valid pairs'
+    flops over the FP32 rate."""
+    Q, N = q.shape[0], t.shape[0]
+    by_bytes = (Q * (12 + 1) + N * (12 + 1) + Q * 8) / PEAK_BYTES
+    by_ops = NN_FLOPS_PER_PAIR * int(qm.sum()) * int(tm.sum()) / PEAK_FP32
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes > by_ops else "operations"
+
+
+def time_nn_search(card: str, v1_src=None) -> dict:
+    """Phase 3: CUDA-event times at both main-path shapes, in turns (plain,
+    [v1,] kernel, kernel, [v1,] plain), each with its bound and share, then
+    the host time to enqueue a call; ``v1_src`` adds the first port's
+    kernel built from that source."""
+    from glim_tpu_torch.ops.nn_search import nn_search, nn_search_plain
+
+    v1 = _nn_search_v1(v1_src) if v1_src else None
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for Q in (16384, 4096):
+        case = _nn_case(gen, Q, 131072)
+        kern, plain = (lambda: nn_search(*case)), (lambda: nn_search_plain(*case))
+        _time(kern, 3), _time(plain, 1)                       # warm-up
+        p1 = _time(plain, 5)
+        if v1:
+            v1_fn = lambda: v1(*case)
+            _time(v1_fn, 3)
+            a1 = _time(v1_fn, 20)
+        k1, k2 = _time(kern, 50), _time(kern, 50)
+        if v1:
+            a2 = _time(v1_fn, 20)
+        p2 = _time(plain, 5)
+        h1 = _host_us(kern, 50)
+        if v1:
+            hv = _host_us(v1_fn, 50)
+        h2 = _host_us(kern, 50)
+        bound, by = nn_bound_ms(*case)
+        ms = (k1 + k2) / 2
+        sfx = "" if Q == 16384 else f"_q{Q}"
+        out.update({f"ms{sfx}": ms, f"plain_ms{sfx}": (p1 + p2) / 2, f"bound_ms{sfx}": bound,
+                    f"bound_share{sfx}": bound / ms, f"host_us{sfx}": (h1 + h2) / 2})
+        line = (f"nn_search Q={Q} N=131072 [{card}]: kernel {k1:.4f} / {k2:.4f} ms, plain "
+                f"{p1:.3f} / {p2:.3f} ms, bound {bound:.4f} ms ({by}), share "
+                f"{bound / ms:.3f}, host enqueue {h1:.1f} / {h2:.1f} us a call")
+        if v1:
+            out.update({f"v1_ms{sfx}": (a1 + a2) / 2, f"v1_host_us{sfx}": hv})
+            line += (f"; v1 {a1:.4f} / {a2:.4f} ms, share {bound / ((a1 + a2) / 2):.3f}, "
+                     f"host enqueue {hv:.1f} us a call")
+        print(line)
+        if Q == 16384:
+            clocks = _sm_clock_under(kern, 4000)
+            seen = f"{min(clocks)}-{max(clocks)} MHz" if clocks else "not read"
+            print(f"nn_search Q=16384: SM clock {seen} over {len(clocks)} samples "
+                  "during 4000 calls")
+    # No single PyTorch call computes a masked k=1 search with this tie rule
+    # (torch.cdist then min is two calls and a 16384 x 131072 matrix).
+    out.update(bound_by=by, library_ms=None)
+    return out
 
 
 def _print_default(res: dict, card: str, tag: str = "default") -> None:
@@ -284,12 +501,13 @@ def _sync_site() -> str:
 def profile_default(card: str, out_dir: str = "build", n_scans: int = 100,
                     steady=(60, 80), prof=(80, 90), sync=(90, 95),
                     name: str = "default", overrides=None, min_evictions: int = 0) -> None:
-    """The default configuration: host-clock ms/scan over scans [steady),
-    a torch.profiler window over scans [prof) and a set_sync_debug_mode
-    ("warn") count over scans [sync), which also counts the pinned-copy
-    reads that had to wait for their copy. The tables go to
-    out_dir/profile_<name>.txt. ``overrides`` and ``min_evictions`` as for
-    run_default and check_default (phase 5b's run)."""
+    """The default configuration (or, with name "gicp", phase 4's GICP
+    slice): host-clock ms/scan over scans [steady), a torch.profiler window
+    over scans [prof) and a set_sync_debug_mode ("warn") count over scans
+    [sync), which also counts the pinned-copy reads that had to wait for
+    their copy. The tables go to out_dir/profile_<name>.txt. ``overrides``
+    and ``min_evictions`` as for run_default and check_default (phase 5b's
+    run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -333,11 +551,19 @@ def profile_default(card: str, out_dir: str = "build", n_scans: int = 100,
 
     t_types.HostCopy.numpy = counted_read
     try:
-        res = run_default("cuda", n_scans=n_scans, overrides=overrides, on_scan=on_scan)
+        if name == "gicp":
+            res = run_slice("cuda", n_scans=n_scans, on_scan=on_scan)
+        else:
+            res = run_default("cuda", n_scans=n_scans, overrides=overrides, on_scan=on_scan)
     finally:
         t_types.HostCopy.numpy = read
-    check_default(res, name, min_evictions)
-    _print_default(res, card, name)
+    if name == "gicp":
+        if not (res["poses_finite"] and res["ate"] < ATE_BOUND):
+            raise AssertionError(f"gicp: ATE {res['ate']:.4f} m or non-finite poses")
+        print("gicp: " + json.dumps(res))
+    else:
+        check_default(res, name, min_evictions)
+        _print_default(res, card, name)
     n_prof, n_sync = prof[1] - prof[0], sync[1] - sync[0]
     steady_ms = (state[steady[1]] - state[steady[0]]) * 1e3 / (steady[1] - steady[0])
     prof_ms = (state[prof[1]] - state[prof[0]]) * 1e3 / n_prof
@@ -413,10 +639,8 @@ def main() -> int:
         profile_default(card, *args[1:2])
         profile_default(card, *args[1:2], name="evict", overrides=EVICT_OVERRIDES,
                         min_evictions=1)
+        profile_default(card, *args[1:2], name="gicp")
         return 0
-    from glim_tpu_torch.ops.nn_search import nn_search, nn_search_plain
-    from glim_tpu_torch.utils import cuda_build
-
     # --- 1. the card ---
     card = _card()
     kind = torch.cuda.get_device_name(0)
@@ -425,39 +649,11 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # --- 2. build + correctness at the main path's shapes ---
-    t0 = time.perf_counter()
-    nn_search(*_nn_case(torch.Generator(device="cuda").manual_seed(9), 256, 2048))
-    torch.cuda.synchronize()
-    print(f"nn_search kernel built and launched in {time.perf_counter() - t0:.2f} s")
-    for line in cuda_build.build_logs.get("nn_search", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip())
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = 0.0
-    for name, Q, N in (("main Q=16384 N=131072", 16384, 131072),
-                       ("main Q=4096 N=131072", 4096, 131072),
-                       ("ragged Q=1000 N=3001", 1000, 3001)):
-        max_err = max(max_err, _compare(name, *_nn_case(gen, Q, N),
-                                        nn_search, nn_search_plain))
-    q, qm, t, tm = _nn_case(gen, 512, 4096, masked=0.0)
-    t[2000:2100] = t[100:200]                 # duplicate targets
-    q[:100] = t[100:200]
-    qm[:] = True
-    _compare("duplicates Q=512 N=4096", q, qm, t, tm, nn_search, nn_search_plain)
-    idx_k, _ = nn_search(q, qm, t, tm)
-    if not bool((idx_k[:100] == torch.arange(100, 200, device="cuda")).all()):
-        raise AssertionError("duplicate targets: the lowest index must win")
-    print("nn_search duplicates: lowest index returned for all 100 duplicated targets")
+    max_err = check_nn_search()
 
-    # --- 3. timing at the main path's shape ---
-    q, qm, t, tm = _nn_case(gen, 16384, 131072)
-    kern = lambda: nn_search(q, qm, t, tm)
-    plain = lambda: nn_search_plain(q, qm, t, tm)
-    _time(kern, 3), _time(plain, 1)                       # warm-up
-    p1, k1, k2, p2 = _time(plain, 5), _time(kern, 20), _time(kern, 20), _time(plain, 5)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"nn_search Q=16384 N=131072 [{card}]: kernel {k1:.3f} / {k2:.3f} ms, "
-          f"plain {p1:.3f} / {p2:.3f} ms")
+    # --- 3. timing at the main path's shapes ---
+    v1_src = args[args.index("--nn-v1") + 1] if "--nn-v1" in args else None
+    timing = time_nn_search(card, v1_src)
 
     # --- 4. the slice on the card ---
     res = run_slice("cuda")
@@ -490,8 +686,7 @@ def main() -> int:
         "name": "nn_search", "route": "cuda",
         "source": "glim_tpu_torch/csrc/nn_search.cu",
         "replaces": "glim_tpu/ops/pallas_knn.py:29",
-        "launches": res["kernel_launches"], "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": res["kernel_launches"], "max_abs_err": max_err, **timing}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -201,7 +201,7 @@ def _kf_build_plain(pts, covs, mask, *, stride: int, levels: int, cap: int,
 
 
 class SubMapping(SubMappingBase):
-    def __init__(self, params: Optional[SubMappingParams] = None, device="cpu"):
+    def __init__(self, params: Optional[SubMappingParams] = None, device="cuda"):
         self.params = params or SubMappingParams()
         p = self.params
         if p.enable_optimization:
@@ -522,7 +522,7 @@ class SubMapping(SubMappingBase):
 
 
 @register_module("sub_mapping", "sub_mapping")
-def create_sub_mapping_module(config=None, device="cpu"):
+def create_sub_mapping_module(config=None, device="cuda"):
     """libsub_mapping.so."""
     params = SubMappingParams.from_config(config) if config is not None else SubMappingParams()
     return SubMapping(params, device=device)

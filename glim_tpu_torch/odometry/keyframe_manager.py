@@ -56,7 +56,7 @@ class KeyframeStore:
 
 
 def empty_keyframe_store(K: int, C: int, mini_capacity: int, resolution,
-                         device="cpu") -> KeyframeStore:
+                         device) -> KeyframeStore:
     mini = vmx.empty_gaussian_voxelmap(mini_capacity, resolution, device=device)
     return KeyframeStore(
         pts=torch.zeros((K, C, 3), device=device),
@@ -142,7 +142,7 @@ class KeyframeManager:
                  entropy_thresh: float,
                  C: int, model_capacities: List[int],
                  model_resolutions: List[float],
-                 mini_capacity: int = 16384, device="cpu"):
+                 mini_capacity: int = 16384, device="cuda"):
         self.strategy = strategy.upper()
         self.max_num = max_num_keyframes
         self.min_overlap = min_overlap

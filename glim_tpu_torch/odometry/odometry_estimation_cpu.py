@@ -108,7 +108,7 @@ def _scan_step(state: OdomDeviceState, pts, times, mask, neighbors, dt, gen,
 
 class OdometryEstimationCPU(OdometryEstimationBase):
     def __init__(self, params: Optional[OdometryEstimationCPUParams] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.params = params or OdometryEstimationCPUParams()
         self.device = torch.device(device)
         p = self.params

@@ -59,7 +59,7 @@ class OdometryEstimationCPUIMUParams(OdometryEstimationIMUParams):
 
 class OdometryEstimationCPUIMU(OdometryEstimationIMU):
     def __init__(self, params: Optional[OdometryEstimationCPUIMUParams] = None,
-                 device="cpu"):
+                 device="cuda"):
         self._cpu_params = params or OdometryEstimationCPUIMUParams()
         p = self._cpu_params
         if p.registration_type.upper().startswith("VGICP"):
@@ -109,7 +109,7 @@ class OdometryEstimationCPUIMU(OdometryEstimationIMU):
 
 
 @register_module("odometry", "odometry_estimation_cpu")
-def create_odometry_estimation_cpu_module(config=None, sensors_config=None, device="cpu"):
+def create_odometry_estimation_cpu_module(config=None, sensors_config=None, device="cuda"):
     """libodometry_estimation_cpu.so: the IMU-coupled frame-to-model module.
     Its LiDAR-only fallback (enable_imu=false) is not ported yet."""
     if config is not None and not config.param("odometry_estimation", "enable_imu", True):

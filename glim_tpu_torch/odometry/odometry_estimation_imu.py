@@ -160,7 +160,7 @@ class OdometryEstimationIMU(OdometryEstimationBase):
     ``_init_model``, ``_maybe_update_model`` and ``_last_kf_pose_dev``."""
 
     def __init__(self, params: Optional[OdometryEstimationIMUParams] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.params = params or OdometryEstimationIMUParams()
         self.device = torch.device(device)
         p = self.params
@@ -557,7 +557,7 @@ class OdometryEstimationIMU(OdometryEstimationBase):
 
 
 @register_module("odometry", "odometry_estimation_gpu")
-def create_odometry_estimation_gpu_module(config=None, sensors_config=None, device="cpu"):
+def create_odometry_estimation_gpu_module(config=None, sensors_config=None, device="cuda"):
     """libodometry_estimation_gpu.so: the VGICP keyframe-map odometry."""
     params = (OdometryEstimationIMUParams.from_config(config, sensors_config)
               if config is not None else OdometryEstimationIMUParams())

@@ -99,7 +99,7 @@ def _zero_preints(W: int, device) -> PreintegratedImu:
                             H_pg=z(3, 3), cov=z(9, 9), bias=z(6))
 
 
-def empty_window(W: int, C_sub: int, device="cpu") -> WindowState:
+def empty_window(W: int, C_sub: int, device) -> WindowState:
     z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
     eye4 = lambda n: torch.eye(4, device=device).expand(n, 4, 4).clone()
     return WindowState(

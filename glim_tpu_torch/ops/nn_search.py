@@ -8,12 +8,18 @@ index, d2 clamped >= 0 at the end, invalid queries -> (0, +inf).
 ``nn_search`` dispatches on where its tensors lie: CPU tensors go to
 ``nn_search_plain``; CUDA tensors launch the hand-written kernel in
 ``glim_tpu_torch/csrc/nn_search.cu`` or raise — there is no fallback. Each
-launch adds one to ``nn_search.kernel_launches``.
+call that launches it adds one to ``nn_search.kernel_launches`` (the kernel
+is three device launches: pack, split search, merge).
+
+The kernel splits the targets across blocks; ``launch_geometry`` picks the
+split from Q, N and the SM count, and the merge keeps the lowest index on
+ties across splits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -55,6 +61,34 @@ def nn_search_plain(queries: torch.Tensor, query_mask: torch.Tensor,
     return idx, d2
 
 
+# The kernel's tiling (csrc/nn_search.cu; checked against the library when
+# it loads): a search block's threads, each holding QUERY_ROWS queries in
+# registers (thread i of block b holds queries b * QUERIES_PER_BLOCK + i +
+# r * QUERY_THREADS), and the targets of a shared-memory tile. A split is a
+# whole number of tiles.
+QUERY_THREADS = 128
+QUERY_ROWS = 8
+QUERIES_PER_BLOCK = QUERY_THREADS * QUERY_ROWS
+TARGET_TILE = 512
+BLOCKS_PER_SM = 4        # search blocks wanted on every SM
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_geometry(Q: int, N: int, n_sm: int) -> Tuple[int, int, int]:
+    """(query blocks, target splits S, targets a split) for the search grid:
+    S is the fewest splits that give at least BLOCKS_PER_SM blocks for
+    every SM, capped at one tile a split; every split holds targets when
+    N > 0, and one empty split stands for N = 0."""
+    q_blocks = max(1, _cdiv(Q, QUERIES_PER_BLOCK))
+    n_tiles = max(1, _cdiv(N, TARGET_TILE))
+    wanted = min(n_tiles, _cdiv(BLOCKS_PER_SM * n_sm, q_blocks))
+    tiles_per_split = _cdiv(n_tiles, wanted)
+    return q_blocks, _cdiv(n_tiles, tiles_per_split), tiles_per_split * TARGET_TILE
+
+
 _lib = None
 
 
@@ -63,14 +97,27 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = load_kernel_library("nn_search")
         lib.glim_nn_search.restype = ctypes.c_int
-        lib.glim_nn_search.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_void_p]
+        lib.glim_nn_search.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                       + [ctypes.c_void_p] * 4)
+        lib.glim_nn_search_scratch_bytes.restype = ctypes.c_int64
+        lib.glim_nn_search_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.glim_nn_search_tiling.restype = None
+        lib.glim_nn_search_tiling.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.glim_cuda_error_string.restype = ctypes.c_char_p
         lib.glim_cuda_error_string.argtypes = [ctypes.c_int]
+        qpb, tile = ctypes.c_int(), ctypes.c_int()
+        lib.glim_nn_search_tiling(ctypes.byref(qpb), ctypes.byref(tile))
+        if (qpb.value, tile.value) != (QUERIES_PER_BLOCK, TARGET_TILE):
+            raise RuntimeError(f"nn_search: the kernel tiles {qpb.value} queries x "
+                               f"{tile.value} targets, the wrapper expects "
+                               f"{QUERIES_PER_BLOCK} x {TARGET_TILE}")
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
@@ -102,14 +149,18 @@ def nn_search(queries: torch.Tensor, query_mask: torch.Tensor,
         raise ValueError("nn_search: Q and N must fit in int32")
 
     lib = _library()
-    t_sq = torch.where(target_mask, torch.sum(targets * targets, dim=-1), float("inf"))
-    targets_xyzw = torch.cat([targets, t_sq[:, None]], dim=1).contiguous()
     out_idx = torch.empty(Q, dtype=torch.int32, device=dev)
     out_d2 = torch.empty(Q, dtype=torch.float32, device=dev)
+    if Q == 0:
+        return out_idx, out_d2
+    _, splits, split_len = launch_geometry(Q, N, _sm_count(dev.index))
+    scratch = torch.empty(lib.glim_nn_search_scratch_bytes(Q, N, splits),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.glim_nn_search(queries.data_ptr(), query_mask.data_ptr(),
-                                targets_xyzw.data_ptr(), Q, N,
+                                targets.data_ptr(), target_mask.data_ptr(), Q, N,
+                                splits, split_len, scratch.data_ptr(),
                                 out_idx.data_ptr(), out_d2.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("nn_search kernel launch failed: "

@@ -62,7 +62,7 @@ class GaussianVoxelMap:
         return self.hash != INVALID_HASH
 
 
-def empty_gaussian_voxelmap(capacity: int, resolution, device="cpu") -> GaussianVoxelMap:
+def empty_gaussian_voxelmap(capacity: int, resolution, device) -> GaussianVoxelMap:
     """``resolution`` is a float or a 0-dim tensor; a tensor already on
     ``device`` is kept as it is, and a float is filled on the device, so
     neither reads from nor uploads through the host."""
@@ -219,8 +219,8 @@ class PointVoxelMap:
         return int(self.points.shape[0])
 
 
-def empty_point_voxelmap(capacity: int, min_dist, lru_horizon: int = 2**30,
-                         device="cpu") -> PointVoxelMap:
+def empty_point_voxelmap(capacity: int, min_dist, lru_horizon: int = 2**30, *,
+                         device) -> PointVoxelMap:
     return PointVoxelMap(
         points=torch.zeros((capacity, 3), dtype=torch.float32, device=device),
         covs=torch.zeros((capacity, 3, 3), dtype=torch.float32, device=device),

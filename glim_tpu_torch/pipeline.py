@@ -2,7 +2,8 @@
 
 Twin of ``glim_tpu/pipeline.py::GlimTPU`` in synchronous mode: reads
 config.json, builds the time keeper, the preprocessor, the configured
-odometry module and the configured sub-mapping module on ``device``, and
+odometry module and the configured sub-mapping module on ``device`` (the
+card by default; without one it raises unless ``device="cpu"``), and
 exposes ``insert_imu`` / ``insert_frame`` / ``wait`` / ``odometry_estimates``
 / ``submaps``. Frames marginalized out of the odometry window go to
 sub-mapping, as in ``GlimTPU``'s synchronous path.
@@ -42,7 +43,7 @@ class GlimTorch:
     estimates and submaps out."""
 
     def __init__(self, config_path: Optional[str] = None,
-                 async_mode: bool = False, device="cpu",
+                 async_mode: bool = False, device="cuda",
                  overrides: Optional[List[tuple]] = None):
         """``overrides`` is a list of (logical_config, module, name, value)
         applied after loading and before module construction."""
@@ -50,6 +51,9 @@ class GlimTorch:
             raise NotImplementedError("glim_tpu_torch runs the synchronous "
                                       "pipeline only (async_mode=False)")
         self.device = torch.device(device)
+        if self.device.type != "cpu" and not torch.cuda.is_available():
+            raise RuntimeError(f"GlimTorch: device {self.device} requested but no CUDA device "
+                               'is available; pass device="cpu" to run on the host')
         if config_path is None:
             config_path = create_default_config_dir(
                 tempfile.mkdtemp(prefix="glim_tpu_torch_config_"))

@@ -133,7 +133,7 @@ class CloudPreprocessor:
     """Sensor-agnostic scan preprocessing front-end on ``device``."""
 
     def __init__(self, params: Optional[CloudPreprocessorParams] = None,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cuda"):
         self.params = params or CloudPreprocessorParams()
         self.device = torch.device(device)
         self._gen = torch.Generator(device=self.device)

@@ -54,7 +54,7 @@ def _to_numpy(obj, nested=()) -> Dict[str, np.ndarray]:
     return out
 
 
-def preintegrated_imu_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> PreintegratedImu:
+def preintegrated_imu_from_numpy(d: Dict[str, np.ndarray], device) -> PreintegratedImu:
     return _from_numpy(PreintegratedImu, d, device)
 
 
@@ -62,7 +62,7 @@ def preintegrated_imu_to_numpy(pre: PreintegratedImu) -> Dict[str, np.ndarray]:
     return _to_numpy(pre)
 
 
-def window_state_from_numpy(d: Dict, device="cpu") -> WindowState:
+def window_state_from_numpy(d: Dict, device) -> WindowState:
     """All 22 WindowState fields; ``d["preints"]`` is a nested dict."""
     return _from_numpy(WindowState, d, device,
                        nested={"preints": preintegrated_imu_from_numpy})
@@ -72,7 +72,7 @@ def window_state_to_numpy(win: WindowState) -> Dict:
     return _to_numpy(win, nested={"preints": preintegrated_imu_to_numpy})
 
 
-def point_voxelmap_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> PointVoxelMap:
+def point_voxelmap_from_numpy(d: Dict[str, np.ndarray], device) -> PointVoxelMap:
     return _from_numpy(PointVoxelMap, d, device)
 
 
@@ -80,7 +80,7 @@ def point_voxelmap_to_numpy(pm: PointVoxelMap) -> Dict[str, np.ndarray]:
     return _to_numpy(pm)
 
 
-def gaussian_voxelmap_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> GaussianVoxelMap:
+def gaussian_voxelmap_from_numpy(d: Dict[str, np.ndarray], device) -> GaussianVoxelMap:
     """One map, or a stack of maps when every field has a leading axis."""
     return _from_numpy(GaussianVoxelMap, d, device)
 
@@ -89,7 +89,7 @@ def gaussian_voxelmap_to_numpy(vm: GaussianVoxelMap) -> Dict[str, np.ndarray]:
     return _to_numpy(vm)
 
 
-def voxelmap_levels_from_numpy(levels, device="cpu") -> Tuple[GaussianVoxelMap, ...]:
+def voxelmap_levels_from_numpy(levels, device) -> Tuple[GaussianVoxelMap, ...]:
     """The multi-resolution model: a sequence of per-level dicts."""
     return tuple(gaussian_voxelmap_from_numpy(d, device) for d in levels)
 
@@ -98,7 +98,7 @@ def voxelmap_levels_to_numpy(levels) -> Tuple[Dict[str, np.ndarray], ...]:
     return tuple(gaussian_voxelmap_to_numpy(vm) for vm in levels)
 
 
-def keyframe_store_from_numpy(d: Dict, device="cpu") -> KeyframeStore:
+def keyframe_store_from_numpy(d: Dict, device) -> KeyframeStore:
     """All KeyframeStore fields; ``d["vm"]`` is the stacked mini maps' dict."""
     return _from_numpy(KeyframeStore, d, device,
                        nested={"vm": gaussian_voxelmap_from_numpy})

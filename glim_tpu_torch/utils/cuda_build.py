@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -43,12 +43,13 @@ def _nvcc() -> str:
                        "glim_tpu_torch are built from source at first use")
 
 
-def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
+def load_kernel_library(name: str, src: Optional[str] = None) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, or the source ``src``
+    under ``name``; raises on failure."""
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = os.path.join(CSRC, f"{name}.cu")
+        src = src or os.path.join(CSRC, f"{name}.cu")
         with open(src, "rb") as f:
             digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         out_dir = build_dir()

@@ -84,7 +84,7 @@ def test_voxelmap_overlap_matches_jax():
     pts, covs, mask = _cloud(rng, 700, 1024)
     vm_j = j_vmx.voxelmap_insert(j_vmx.empty_gaussian_voxelmap(2048, 0.7), jnp.asarray(pts),
                                  jnp.asarray(mask), jnp.asarray(covs), jnp.int32(0))
-    vm_t = t_state.gaussian_voxelmap_from_numpy(np_state(vm_j))
+    vm_t = t_state.gaussian_voxelmap_from_numpy(np_state(vm_j), "cpu")
     q, _, qm = _cloud(rng, 800, 1024, scale=10.0)
     q[:400] = pts[:400] + rng.normal(size=(400, 3)) * 0.1     # half land in the map
     for Tq in (np.eye(4, dtype=np.float32), _pose(rng, 0.01, 0.05)):
@@ -101,7 +101,7 @@ def test_stacked_lookup_equals_per_map_lookup():
     rng = np.random.default_rng(2)
     store_j = _jax_store(rng)
     d = np_state(store_j)
-    store = t_state.keyframe_store_from_numpy(d)
+    store = t_state.keyframe_store_from_numpy(d, "cpu")
     # Map k is asked for points near its own keyframe's.
     q = (d["pts"][:, :300] + rng.normal(size=(5, 300, 3)) * 0.2).astype(np.float32)
     stacked = N(t_vmx.voxelmap_lookup(store.vm, T(q)))
@@ -121,7 +121,7 @@ def test_keyframe_overlaps_match_jax():
     batched lookup) on one store: exact."""
     rng = np.random.default_rng(3)
     store_j = _jax_store(rng)
-    store_t = t_state.keyframe_store_from_numpy(np_state(store_j))
+    store_t = t_state.keyframe_store_from_numpy(np_state(store_j), "cpu")
     pts, _, mask = _cloud(rng, 500, 600)
     ov_j = np.asarray(j_kfm.kf_overlaps_with_points(store_j, jnp.asarray(pts), jnp.asarray(mask)))
     ov_t = N(t_kfm.kf_overlaps_with_points(store_t, T(pts), T(mask)))
@@ -141,7 +141,7 @@ def test_kf_write_and_rebuild_match_jax():
     rng = np.random.default_rng(4)
     K, C = 4, 512
     store_j = j_kfm.empty_keyframe_store(K, C, 2048, 0.6)
-    store_t = t_kfm.empty_keyframe_store(K, C, 2048, 0.6)
+    store_t = t_kfm.empty_keyframe_store(K, C, 2048, 0.6, "cpu")
     for order, slot in enumerate((2, 0, 1)):
         pts, covs, mask = _cloud(rng, 400, C)
         Tw = np.eye(4, dtype=np.float32)
@@ -278,7 +278,7 @@ def test_merge_keyframes_matches_jax():
 def test_state_converters_roundtrip():
     rng = np.random.default_rng(9)
     d = np_state(_jax_store(rng))
-    back = t_state.keyframe_store_to_numpy(t_state.keyframe_store_from_numpy(d))
+    back = t_state.keyframe_store_to_numpy(t_state.keyframe_store_from_numpy(d, "cpu"))
     for k, v in d.items():
         items = v.items() if k == "vm" else [(k, v)]
         for kk, vv in items:
@@ -287,5 +287,5 @@ def test_state_converters_roundtrip():
             assert got.dtype == vv.dtype, kk
     levels = (d["vm"], d["vm"])
     lv = t_state.voxelmap_levels_to_numpy(t_state.voxelmap_levels_from_numpy(
-        [{k: v[0] for k, v in m.items()} for m in levels]))
+        [{k: v[0] for k, v in m.items()} for m in levels], "cpu"))
     assert len(lv) == 2 and lv[0]["hash"].shape == (4096,)

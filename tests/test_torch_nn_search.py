@@ -18,7 +18,8 @@ import torch
 
 from glim_tpu.ops.knn import knn_search
 from glim_tpu.ops.pallas_knn import nn_search_pallas
-from glim_tpu_torch.ops.nn_search import nn_search, nn_search_plain
+from glim_tpu_torch.ops import nn_search as t_nn
+from glim_tpu_torch.ops.nn_search import launch_geometry, nn_search, nn_search_plain
 
 D2_ATOL = 1e-3
 
@@ -129,6 +130,89 @@ def test_wrapper_rejects_other_devices():
                   q, torch.ones(4, dtype=torch.bool, device="meta"))
 
 
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("Q,N", [(16384, 131072), (4096, 131072)])
+def test_launch_geometry_fills_the_card_at_main_path_shapes(Q, N):
+    """Both main-path shapes put at least two search blocks on every SM;
+    the splits are whole tiles that cover N, none of them empty."""
+    q_blocks, splits, split_len = launch_geometry(Q, N, H100_SMS)
+    assert q_blocks * splits >= 2 * H100_SMS
+    assert q_blocks == -(-Q // t_nn.QUERIES_PER_BLOCK)
+    assert split_len % t_nn.TARGET_TILE == 0
+    assert splits * split_len >= N > (splits - 1) * split_len
+
+
+@pytest.mark.parametrize("Q,N", [(1, 1), (1, 131072), (16384, 1), (5, 0), (4096, 0),
+                                 (1000, 100), (1000, t_nn.TARGET_TILE - 1),
+                                 (1000, t_nn.TARGET_TILE + 1), (2**20, 131072)])
+def test_launch_geometry_edge_cases(Q, N):
+    """Q=1, N=1, N=0 (one empty split), N under one tile, a huge Q (one
+    split): S >= 1, whole tiles, and the splits cover N."""
+    q_blocks, splits, split_len = launch_geometry(Q, N, H100_SMS)
+    assert q_blocks >= 1 and splits >= 1 and split_len >= t_nn.TARGET_TILE
+    assert split_len % t_nn.TARGET_TILE == 0
+    assert splits * split_len >= N
+    if N <= t_nn.TARGET_TILE:
+        assert splits == 1
+    else:
+        assert (splits - 1) * split_len < N
+    if Q >= t_nn.BLOCKS_PER_SM * H100_SMS * t_nn.QUERIES_PER_BLOCK:
+        assert splits == 1
+
+
+def _split_merge_model(q, qm, t, tm, split_len):
+    """The kernel's split-and-merge in plain torch: the plain search on each
+    target range, then the partials merged in split order with a strict
+    '<', so a tie keeps the earlier split (the lower index)."""
+    args = [torch.from_numpy(a) for a in (q, qm, t, tm)]
+    idx = torch.zeros(len(q), dtype=torch.int32)
+    d2 = torch.full((len(q),), float("inf"))
+    for begin in range(0, max(len(t), 1), split_len):
+        sl = slice(begin, begin + split_len)
+        i_s, d_s = nn_search_plain(args[0], args[1], args[2][sl], args[3][sl])
+        take = d_s < d2
+        idx = torch.where(take, i_s + begin, idx)
+        d2 = torch.where(take, d_s, d2)
+    return idx.numpy(), d2.numpy()
+
+
+def test_split_merge_model_keeps_the_lowest_index():
+    """Duplicates on both sides of a split boundary, and a split whose
+    targets are all masked: the split-and-merge model agrees with the
+    unsplit plain version and with the Pallas kernel (interpret mode)."""
+    Q, N, split_len = 256, 4096, 1024
+    q, qm, t, tm = _case(8, Q, N, np.arange(Q) % 11 != 5, np.arange(N) % 5 != 2)
+    lo = np.arange(1024 - 48, 1024)                 # left of the boundary at 1024
+    t[1024:1024 + 48] = t[lo]
+    tm[lo] = tm[1024:1024 + 48] = True
+    q[:48] = t[lo] + np.float32(1e-3)
+    qm[:48] = True
+    tm[2048:3072] = False                           # the third split holds no valid target
+    q[48:64] = t[2048:2064] + np.float32(1e-3)      # nearest to a masked target
+    i_m, d_m = _split_merge_model(q, qm, t, tm, split_len)
+    i_p, d_p = _plain(q, qm, t, tm)
+    np.testing.assert_array_equal(i_m[:48], lo)
+    np.testing.assert_array_equal(i_m, i_p)
+    np.testing.assert_allclose(d_m, d_p, atol=D2_ATOL)
+    assert not np.isin(i_m[qm], np.arange(2048, 3072)).any()
+    i_j, d_j = nn_search_pallas(jnp.asarray(q), jnp.asarray(qm), jnp.asarray(t),
+                                jnp.asarray(tm), interpret=True)
+    dec = _decisive(q, qm, t, tm)
+    dec[:48] = True                                 # exact duplicates: the lowest index
+    np.testing.assert_array_equal(i_m[dec], np.asarray(i_j)[dec])
+    np.testing.assert_allclose(d_m[qm], np.asarray(d_j)[qm], atol=D2_ATOL)
+    assert (i_m[~qm] == 0).all() and np.isinf(d_m[~qm]).all()
+
+
+def test_split_merge_model_with_no_valid_target():
+    """Every split masked: (0, +inf) for every query, as the unsplit search."""
+    q, qm, t, tm = _case(9, 40, 3000, t_valid=np.zeros(3000, bool))
+    i_m, d_m = _split_merge_model(q, qm, t, tm, 512)
+    assert (i_m == 0).all() and np.isinf(d_m).all()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -136,11 +220,44 @@ def cuda():
     return torch.device("cuda")
 
 
+def _duplicates(case, q, qm, t, tm):
+    """Exact duplicate targets (within 2.5 m of the origin, where a query on a
+    target keeps the plain version's cancellation error under D2_ATOL) and
+    the rows that must get the lowest copy: across the middle split
+    boundary that the launch geometry picks ("split"), or in one thread's
+    query rows, inside one chunk and in the next ("rows")."""
+    if case == "split":
+        _, splits, split_len = launch_geometry(len(q), len(t), t_nn._sm_count(0))
+        b = split_len * (splits // 2)
+        lo = np.arange(b - 64, b)
+        t[lo] *= np.float32(0.25)
+        t[b:b + 64] = t[lo]
+        tm[lo] = tm[b:b + 64] = True
+        rows = np.arange(64)
+        want = lo
+    else:
+        rows = (3 * t_nn.QUERIES_PER_BLOCK + 5
+                + t_nn.QUERY_THREADS * np.arange(t_nn.QUERY_ROWS))
+        a = 70000 + 16 * np.arange(t_nn.QUERY_ROWS)
+        t[a] *= np.float32(0.25)
+        for off in (0, 1, 3, 11):
+            t[a + off] = t[a]
+            tm[a + off] = True
+        want = a.copy()
+        want[-1] = a[0]
+    q[rows] = t[want]
+    qm[rows] = True
+    return rows, want
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("Q,N", [(16384, 131072), (4096, 131072), (1000, 3001), (1, 1)])
-def test_cuda_kernel_matches_plain(cuda, Q, N):
+@pytest.mark.parametrize("Q,N,dups", [(16384, 131072, None), (4096, 131072, None),
+                                      (1000, 3001, None), (1, 1, None),
+                                      (16384, 131072, "split"), (16384, 131072, "rows")])
+def test_cuda_kernel_matches_plain(cuda, Q, N, dups):
     rng = np.random.default_rng(Q + N)
     q, qm, t, tm = _case(7, Q, N, rng.uniform(size=Q) > 0.05, rng.uniform(size=N) > 0.3)
+    rows = _duplicates(dups, q, qm, t, tm) if dups else None
     args = [torch.from_numpy(a).to(cuda) for a in (q, qm, t, tm)]
     before = nn_search.kernel_launches
     i_k, d_k = nn_search(*args)
@@ -155,6 +272,8 @@ def test_cuda_kernel_matches_plain(cuda, Q, N):
     same = (i_k == i_p) | ~qm_d
     assert float(same.float().mean()) > 0.999
     assert bool((i_k[~qm_d] == 0).all()) and bool(torch.isinf(d_k[~qm_d]).all())
+    if rows is not None:
+        np.testing.assert_array_equal(i_k.cpu().numpy()[rows[0]], rows[1])
 
 
 @pytest.mark.gpu

@@ -408,7 +408,7 @@ def test_pointmap_insert(capacity):
     age (lax.top_k keeps the lower index; the port must too)."""
     rng = np.random.default_rng(15)
     pj = j_vmx.empty_point_voxelmap(capacity, 0.5)
-    pt = t_vmx.empty_point_voxelmap(capacity, 0.5)
+    pt = t_vmx.empty_point_voxelmap(capacity, 0.5, device="cpu")
     for step in range(3):
         n = 200
         pts = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
@@ -427,7 +427,7 @@ def test_gaussian_voxelmap_insert_and_lookup(capacity):
     in another order (atol 1e-5); lookups exact."""
     rng = np.random.default_rng(16)
     vj = j_vmx.empty_gaussian_voxelmap(capacity, 0.5)
-    vt = t_vmx.empty_gaussian_voxelmap(capacity, 0.5)
+    vt = t_vmx.empty_gaussian_voxelmap(capacity, 0.5, "cpu")
     for step in range(3):
         pts = rng.uniform(-8, 8, (400, 3)).astype(np.float32)
         covs = _spd(rng, 400, 3) * 0.01

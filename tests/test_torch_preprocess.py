@@ -111,8 +111,8 @@ def test_cloud_preprocessor_frame():
                      times=seq.scans[1].times)
     params = t_pre.CloudPreprocessorParams(random_downsample_target=800,
                                            downsample_resolution=0.5)
-    f1 = t_pre.CloudPreprocessor(params, seed=4).preprocess(raw)
-    f2 = t_pre.CloudPreprocessor(params, seed=4).preprocess(raw)
+    f1 = t_pre.CloudPreprocessor(params, seed=4, device="cpu").preprocess(raw)
+    f2 = t_pre.CloudPreprocessor(params, seed=4, device="cpu").preprocess(raw)
     assert f1.device_points.shape == (1024, 3) and f1.device_neighbors.shape == (1024, 10)
     assert 500 < f1.size <= 800
     m = f1.device_mask.numpy()

@@ -190,15 +190,46 @@ def test_unported_configurations_raise(tmp_path):
         with open(path, "w") as f:
             json.dump(data, f)
         with pytest.raises(NotImplementedError, match=match):
-            GlimTorch(cfg)
+            GlimTorch(cfg, device="cpu")
         data[module][name] = before
         with open(path, "w") as f:
             json.dump(data, f)
     with pytest.raises(NotImplementedError, match="VGICP"):
-        OdometryEstimationCPUIMU(OdometryEstimationCPUIMUParams(registration_type="VGICP"))
+        OdometryEstimationCPUIMU(OdometryEstimationCPUIMUParams(registration_type="VGICP"),
+                                 device="cpu")
     with pytest.raises(NotImplementedError, match="async"):
-        GlimTorch(cfg, async_mode=True)
-    GlimTorch(cfg)                      # the default configuration builds
+        GlimTorch(cfg, async_mode=True, device="cpu")
+    GlimTorch(cfg, device="cpu")        # the default configuration builds
+
+
+def test_entry_points_default_to_cuda(tmp_path):
+    """Every entry point runs on the card unless the caller asks for the
+    CPU; without a card GlimTorch raises and names the remedy."""
+    import inspect
+
+    from glim_tpu_torch.mapping.sub_mapping import SubMapping, create_sub_mapping_module
+    from glim_tpu_torch.odometry.keyframe_manager import KeyframeManager
+    from glim_tpu_torch.odometry.odometry_estimation_cpu import OdometryEstimationCPU
+    from glim_tpu_torch.odometry.odometry_estimation_cpu_imu import (
+        OdometryEstimationCPUIMU, create_odometry_estimation_cpu_module)
+    from glim_tpu_torch.odometry.odometry_estimation_imu import (
+        OdometryEstimationIMU, create_odometry_estimation_gpu_module)
+    from glim_tpu_torch.pipeline import GlimTorch
+    from glim_tpu_torch.preprocess.cloud_preprocessor import CloudPreprocessor
+    from glim_tpu_torch.utils.config import create_default_config_dir
+    from glim_tpu_torch.utils.registry import available_modules
+
+    entry_points = [GlimTorch, CloudPreprocessor, OdometryEstimationIMU,
+                    OdometryEstimationCPU, OdometryEstimationCPUIMU, KeyframeManager,
+                    SubMapping, create_odometry_estimation_gpu_module,
+                    create_odometry_estimation_cpu_module, create_sub_mapping_module]
+    for kind in ("odometry", "sub_mapping"):
+        entry_points += available_modules(kind).values()
+    for fn in entry_points:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            GlimTorch(create_default_config_dir(str(tmp_path / "cfg")))
 
 
 @pytest.fixture

@@ -180,4 +180,4 @@ def test_sub_mapping_on_cuda(tmp_path, cuda):
 @pytest.mark.parametrize("option", ["enable_optimization", "create_between_factors"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match=option):
-        TSubMapping(TParams(**{option: True}))
+        TSubMapping(TParams(**{option: True}), device="cpu")

@@ -117,7 +117,7 @@ def _compare_vgicp(wt, out_t, wj, out_j):
 
 def test_model_levels_roundtrip(scenario):
     levels = scenario[1]
-    back = t_state.voxelmap_levels_to_numpy(t_state.voxelmap_levels_from_numpy(levels))
+    back = t_state.voxelmap_levels_to_numpy(t_state.voxelmap_levels_from_numpy(levels, "cpu"))
     for lv, bk in zip(levels, back):
         for k, v in lv.items():
             np.testing.assert_array_equal(bk[k], v)

@@ -110,7 +110,7 @@ def _run_torch(win, model, consts, step, kw, compute_covs=False, device="cpu",
 
 def test_state_roundtrip(scenario):
     win, model = scenario[:2]
-    back = t_state.window_state_to_numpy(t_state.window_state_from_numpy(win))
+    back = t_state.window_state_to_numpy(t_state.window_state_from_numpy(win, "cpu"))
     assert set(back) == set(win) and len(back) == 22
     for k, v in win.items():
         if k == "preints":
@@ -119,7 +119,7 @@ def test_state_roundtrip(scenario):
         else:
             np.testing.assert_array_equal(back[k], v)
             assert back[k].dtype == v.dtype, k
-    pm = t_state.point_voxelmap_to_numpy(t_state.point_voxelmap_from_numpy(model))
+    pm = t_state.point_voxelmap_to_numpy(t_state.point_voxelmap_from_numpy(model, "cpu"))
     for k, v in model.items():
         np.testing.assert_array_equal(pm[k], v)
 
@@ -158,11 +158,10 @@ def test_two_steps_chained(scenario):
     compare_step(wt2, out_t, wj2, out_j)
 
 
-def test_vgicp_mode_not_ported():
+def test_vgicp_graft_entry_matches_jax():
     """The VGICP mode on the problem of ``__graft_entry__.py::entry`` (one
     flagship step: W=8, 2048 scan lanes, an 8192-voxel map): the port's
-    step matches the JAX one in T_wi and status. (The name dates from when
-    the port raised for this mode; the test now holds it to the JAX step.)"""
+    step matches the JAX one in T_wi and status."""
     import __graft_entry__
 
     fn, args = __graft_entry__.entry()
@@ -171,8 +170,8 @@ def test_vgicp_mode_not_ported():
     f32 = lambda *v: torch.tensor(v, dtype=torch.float32)
     eye4 = torch.eye(4)
     _, out = t_we.window_scan_step(
-        t_state.window_state_from_numpy(np_state(win)),
-        (t_state.gaussian_voxelmap_from_numpy(np_state(vm)),),
+        t_state.window_state_from_numpy(np_state(win), "cpu"),
+        (t_state.gaussian_voxelmap_from_numpy(np_state(vm), "cpu"),),
         *[torch.from_numpy(np.array(a)) for a in (pts, times, mask, nbrs, packed)],
         eye4, f32(0.0, 0.0, -9.80665), f32(0.05)[0], f32(0.02)[0], f32(0.001)[0],
         torch.full((6,), 300.0), f32(1.0)[0], eye4, f32(2.0)[0],
