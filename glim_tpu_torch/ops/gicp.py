@@ -1,7 +1,8 @@
 """GICP / VGICP matching-cost linearization.
 
-Twin of the parts of ``glim_tpu/ops/gicp.py`` the odometry uses. A factor is
-a pure function returning the summed Gauss-Newton system
+Twin of the parts of ``glim_tpu/ops/gicp.py`` the odometry and the global
+back-end use. A factor is a pure function returning the summed Gauss-Newton
+system
 
     H = sum_i J_i^T Omega_i J_i,   b = sum_i J_i^T Omega_i r_i,
     err = sum_i r_i^T Omega_i r_i
@@ -21,7 +22,9 @@ import torch
 from torch.profiler import record_function
 
 from glim_tpu_torch.ops.lie import se3_inv
-from glim_tpu_torch.ops.voxelmap import GaussianVoxelMap, lookup_keys, lookup_table
+from glim_tpu_torch.ops.nn_search import nn_search
+from glim_tpu_torch.ops.voxelmap import (GaussianVoxelMap, lookup_keys,
+                                         lookup_keys_stacked, lookup_table)
 
 
 class FactorSystem(NamedTuple):
@@ -146,3 +149,38 @@ def vgicp_linearize_cached(T_target, T_source, src_pts, src_covs, mu, C_t,
     T_rel = se3_inv(T_target) @ T_source
     return _soa_system(T_rel[:3, :3], T_rel[:3, 3], src_pts, src_covs,
                        mu, C_t, hit)
+
+
+@record_function("vgicp_lookup_stacked")
+def vgicp_lookup_stacked(T_all, tgt, src, sm_pts, sm_mask, keys, stats, res):
+    """Correspondence search for R factor rows against stacked per-submap
+    voxel-map tables (``voxelmap.gaussian_lookup_table``): row r looks up
+    submap src[r]'s cloud, at the relative pose T_all[tgt]^-1 T_all[src],
+    in submap tgt[r]'s table.
+
+    T_all (S, 4, 4); tgt/src (R,); sm_pts (S, M, 3); sm_mask (S, M); keys
+    (S, V, 2); stats (S, V, 12); res (S,) -> mu (R, M, 3), C_t (R, M, 3, 3),
+    hit (R, M)."""
+    tgt, src = tgt.to(torch.int64), src.to(torch.int64)
+    T_rel = se3_inv(T_all[tgt]) @ T_all[src]
+    q = sm_pts[src] @ T_rel[:, :3, :3].transpose(-1, -2) + T_rel[:, None, :3, 3]
+    found = lookup_keys_stacked(keys, res, q, tgt)
+    hit = (found >= 0) & sm_mask[src]
+    V = keys.shape[1]
+    row = stats.reshape(-1, 12)[tgt[:, None] * V + torch.clamp(found, min=0)]
+    return row[..., :3], row[..., 3:].reshape(row.shape[:2] + (3, 3)), hit
+
+
+@record_function("gicp_linearize")
+def gicp_linearize(T_target, T_source, src_pts, src_covs, src_mask,
+                   tgt_pts, tgt_covs, tgt_mask, max_dist) -> FactorSystem:
+    """GICP factor against an explicit target cloud, with nearest-neighbour
+    correspondences from ``nn_search`` (the CUDA kernel on CUDA tensors)."""
+    T_rel = se3_inv(T_target) @ T_source
+    R_rel, t_rel = T_rel[:3, :3], T_rel[:3, 3]
+    q = src_pts @ R_rel.T + t_rel
+    idx, d2 = nn_search(q, src_mask, tgt_pts, tgt_mask)
+    idx = idx.to(torch.int64)
+    inlier = src_mask & (d2 < max_dist * max_dist) & torch.isfinite(d2)
+    return _soa_system(R_rel, t_rel, src_pts, src_covs, tgt_pts[idx], tgt_covs[idx],
+                       inlier.to(q.dtype))

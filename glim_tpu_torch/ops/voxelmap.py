@@ -181,6 +181,62 @@ def lookup_keys(keys: torch.Tensor, resolution, points: torch.Tensor) -> torch.T
     return found
 
 
+def gaussian_lookup_table(vm: GaussianVoxelMap):
+    """The per-submap search payload of the stacked lookups (global mapping
+    keeps one per submap and level): the (V, 2) key table and the (V, 12)
+    mean|cov stats rows."""
+    return lookup_table(vm), torch.cat([vm.mean, vm.cov.reshape(-1, 9)], dim=1)
+
+
+def lookup_keys_stacked(keys: torch.Tensor, resolution: torch.Tensor,
+                        points: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Query row r's points (R, Q, 3) against table ``rows[r]`` of the
+    stacked (S, V, 2) key tables at its resolution (S,) -> (R, Q) voxel
+    index or -1: per row, what ``lookup_keys`` gives on that table.
+
+    No per-row table is gathered (an (R, V, 2) copy): the S sorted tables,
+    keyed (table, hash) as int64, are one ascending sequence, so a single
+    ``searchsorted(right=False)`` finds each query's insertion point in its
+    own table, and the probes read the stacked table in place."""
+    S, V = keys.shape[0], keys.shape[1]
+    rows = rows.to(torch.int64)
+    q_coords = voxel_coords(points, (1.0 / resolution[rows])[:, None, None])
+    q_hash = hash_coords(q_coords)
+    q_h2 = hash_coords2(q_coords)
+    t_hash = keys[..., 0].reshape(-1)
+    t_h2 = keys[..., 1].reshape(-1)
+    table = torch.arange(S, device=keys.device)[:, None] << 32
+    flat = (table + (keys[..., 0].to(torch.int64) - _I32_MIN)).reshape(-1)
+    start = rows[:, None] * V
+    base = torch.searchsorted(flat, (rows[:, None] << 32) + (q_hash.to(torch.int64) - _I32_MIN),
+                              right=False) - start
+    found = torch.full(q_hash.shape, -1, dtype=torch.int64, device=points.device)
+    for w in range(_PROBE):
+        idx = torch.clamp(base + w, max=V - 1)
+        hit = (t_hash[start + idx] == q_hash) & (t_h2[start + idx] == q_h2)
+        found = torch.where((found < 0) & hit, idx, found)
+    return found
+
+
+def voxelmap_overlap_stacked(T_rel: torch.Tensor, tgt: torch.Tensor, src: torch.Tensor,
+                             sm_pts: torch.Tensor, sm_mask: torch.Tensor,
+                             keys: torch.Tensor, res: torch.Tensor,
+                             stride: int = 1) -> torch.Tensor:
+    """``voxelmap_overlap`` over (tgt, src) pair rows against stacked
+    per-submap tables: row r scores submap src[r]'s cloud, transformed by
+    T_rel[r], against submap tgt[r]'s key table. ``stride`` subsamples the
+    scored cloud (the overlap only feeds a threshold); 1 is exact.
+
+    T_rel (R, 4, 4); tgt/src (R,); sm_pts (S, M, 3); sm_mask (S, M); keys
+    (S, V, 2); res (S,) -> (R,) f32."""
+    src = src.to(torch.int64)
+    pts = sm_pts[src][:, ::stride]
+    msk = sm_mask[src][:, ::stride]
+    q = pts @ T_rel[:, :3, :3].transpose(-1, -2) + T_rel[:, None, :3, 3]
+    hits = (lookup_keys_stacked(keys, res, q, tgt) >= 0) & msk
+    return hits.sum(1) / torch.clamp(msk.sum(1), min=1)
+
+
 def voxelmap_lookup(vm: GaussianVoxelMap, points: torch.Tensor) -> torch.Tensor:
     """(..., Q, 3) query points -> (..., Q) voxel index or -1; a stacked
     map (leading K axis) looks up query row k in map k."""

@@ -1,17 +1,18 @@
 """GlimTorch: the config-driven front of the PyTorch port.
 
 Twin of ``glim_tpu/pipeline.py::GlimTPU`` in synchronous mode: reads
-config.json, builds the time keeper, the preprocessor, the configured
-odometry module and the configured sub-mapping module on ``device`` (the
-card by default; without one it raises unless ``device="cpu"``), and
-exposes ``insert_imu`` / ``insert_frame`` / ``wait`` / ``odometry_estimates``
-/ ``submaps``. Frames marginalized out of the odometry window go to
-sub-mapping, as in ``GlimTPU``'s synchronous path.
+config.json, builds the time keeper, the preprocessor and the configured
+odometry, sub-mapping and global-mapping modules on ``device`` (the card by
+default; without one it raises unless ``device="cpu"``), and exposes
+``insert_imu`` / ``insert_frame`` / ``wait`` / ``odometry_estimates`` /
+``submaps`` / ``export_points``. Frames marginalized out of the odometry
+window go to sub-mapping and each new submap to global mapping, as in
+``GlimTPU``'s synchronous path; ``submaps`` are the global mapping's, with
+their optimized ``T_world_origin``.
 
-Global mapping is not built yet: the submaps are kept in ``submaps``. The
-async worker threads (``async_mode=True``) and extension modules are not
-ported either. A module the port lacks (for example
-``libsub_mapping_passthrough.so``) raises, naming the module; it is never
+The async worker threads (``async_mode=True``), extension modules and
+dumps are not ported. A module the port lacks (for example
+``libglobal_mapping_pose_graph.so``) raises, naming the module; it is never
 swapped for another.
 """
 
@@ -24,6 +25,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks
+from glim_tpu_torch.mapping.global_mapping_base import GlobalMappingBase
 from glim_tpu_torch.mapping.sub_mapping_base import SubMappingBase
 from glim_tpu_torch.odometry.estimation_base import OdometryEstimationBase
 from glim_tpu_torch.preprocess.cloud_preprocessor import (CloudPreprocessor,
@@ -39,8 +42,8 @@ logger = create_module_logger("glim")
 
 
 class GlimTorch:
-    """LiDAR-IMU odometry and sub-mapping: scans + IMU in, odometry
-    estimates and submaps out."""
+    """End-to-end SLAM: scans + IMU in, odometry estimates and a globally
+    consistent set of submaps out."""
 
     def __init__(self, config_path: Optional[str] = None,
                  async_mode: bool = False, device="cuda",
@@ -83,11 +86,18 @@ class GlimTorch:
             sub_cfg.param("sub_mapping", "so_name", "libsub_mapping.so"), sub_cfg,
             device=self.device)
         glb_cfg = self.config.get_config("config_global_mapping")
-        logger.info("glim_tpu_torch: global mapping (%s) is not built yet; submaps "
-                    "are kept in GlimTorch.submaps",
-                    glb_cfg.param("global_mapping", "so_name", "libglobal_mapping.so"))
+        self.global_mapping = GlobalMappingBase.load_module(
+            glb_cfg.param("global_mapping", "so_name", "libglobal_mapping_pose_graph.so"),
+            glb_cfg, device=self.device)
         self._sync_estimates: List[EstimationFrame] = []
-        self._submaps: List[SubMap] = []
+        # The odom -> world anchor follows the globally corrected submaps.
+        GlobalMappingCallbacks.on_update_submaps.add(self._on_update_submaps_anchor)
+
+    def _on_update_submaps_anchor(self, submaps: List[SubMap]) -> None:
+        if submaps and submaps[-1].frames:
+            last = submaps[-1]
+            self.trajectory.update_anchor(last.frames[-1].stamp,
+                                          last.T_world_origin @ last.T_origin_endpoint_R)
 
     # -- input --
 
@@ -98,6 +108,7 @@ class GlimTorch:
         linear_acc, angular_vel = np.asarray(linear_acc), np.asarray(angular_vel)
         self.odometry.insert_imu(stamp, linear_acc, angular_vel)
         self.sub_mapping.insert_imu(stamp, linear_acc, angular_vel)
+        self.global_mapping.insert_imu(stamp, linear_acc, angular_vel)
 
     def insert_frame(self, raw: RawPoints) -> None:
         self.data_validator.points_callback(raw)
@@ -119,17 +130,25 @@ class GlimTorch:
                 # The state copy lands while sub-mapping dispatches its work.
                 m.fetch_state_async()
                 self.sub_mapping.insert_frame(m)
-            self._submaps.extend(self.sub_mapping.get_submaps())
+        with record_function("global_mapping"):
+            for sm in self.sub_mapping.get_submaps():
+                self.global_mapping.insert_submap(sm)
 
     # -- control --
 
     def wait(self) -> None:
         """Flush the pipeline (end of sequence): the frames still in the
         odometry window, with their final poses, go to sub-mapping, which
-        closes its last submap."""
+        closes its last submap; global mapping takes the remaining submaps
+        without optimizing between them, then runs one final optimize."""
         for m in self.odometry.get_remaining_frames():
             self.sub_mapping.insert_frame(m)
-        self._submaps.extend(self.sub_mapping.submit_end_of_sequence())
+        with record_function("global_mapping"):
+            self.global_mapping.defer_optimization = True
+            for sm in self.sub_mapping.submit_end_of_sequence():
+                self.global_mapping.insert_submap(sm)
+            self.global_mapping.defer_optimization = False
+            self.global_mapping.optimize()
 
     # -- output --
 
@@ -139,4 +158,7 @@ class GlimTorch:
 
     @property
     def submaps(self) -> List[SubMap]:
-        return self._submaps
+        return self.global_mapping.submaps
+
+    def export_points(self) -> np.ndarray:
+        return self.global_mapping.export_points()

@@ -2,9 +2,11 @@
 
 The odometry has no weights; its carried state is the sliding window, the
 map (a point map, or a tuple of Gaussian voxel-map levels) and the keyframe
-store. These functions turn a state given as a dict of numpy arrays (one entry
-per dataclass field, the window's ``preints`` as a nested dict) into the
-port's tensors on ``device``, and back. Floating arrays become float32,
+store; global mapping's is the padded factor graph that ``global_gn``
+solves (``global_gn_args_from_numpy``). These functions turn a state given
+as a dict of numpy arrays (one entry per dataclass field, the window's
+``preints`` as a nested dict) into the port's tensors on ``device``, and
+back. Floating arrays become float32,
 integer arrays int32, booleans stay boolean, so a float64 numpy state is not
 silently kept as float64 in torch.
 """
@@ -106,3 +108,13 @@ def keyframe_store_from_numpy(d: Dict, device) -> KeyframeStore:
 
 def keyframe_store_to_numpy(store: KeyframeStore) -> Dict:
     return _to_numpy(store, nested={"vm": gaussian_voxelmap_to_numpy})
+
+
+def global_gn_args_from_numpy(d: Dict, device) -> Dict:
+    """``global_gn``'s argument dict (the JAX package's keyword names,
+    without the static bucket sizes) given as numpy arrays, ``d["m_pre"]``
+    the PreintegratedImu stack as a nested dict -> the port's tensors on
+    ``device``; absent translation priors stay None."""
+    return {k: (preintegrated_imu_from_numpy(v, device) if k == "m_pre"
+                else None if v is None else _tensor(v, device))
+            for k, v in d.items()}

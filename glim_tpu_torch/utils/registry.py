@@ -65,7 +65,8 @@ def _ensure_builtins_imported(kind: str) -> None:
     # without the caller importing every pipeline module.
     mods = {"odometry": ["glim_tpu_torch.odometry.odometry_estimation_imu",
                          "glim_tpu_torch.odometry.odometry_estimation_cpu_imu"],
-            "sub_mapping": ["glim_tpu_torch.mapping.sub_mapping"]}
+            "sub_mapping": ["glim_tpu_torch.mapping.sub_mapping"],
+            "global_mapping": ["glim_tpu_torch.mapping.global_mapping"]}
     for m in mods.get(kind, []):
         importlib.import_module(m)
 

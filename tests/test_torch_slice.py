@@ -123,10 +123,13 @@ def test_glim_torch_matches_glim_tpu(tmp_path):
 def test_import_isolation():
     """glim_tpu_torch and its pipeline load neither JAX nor glim_tpu."""
     code = ("import sys, glim_tpu_torch, glim_tpu_torch.pipeline, glim_tpu_torch.state, "
-            "glim_tpu_torch.odometry.keyframe_manager, glim_tpu_torch.mapping.sub_mapping; "
+            "glim_tpu_torch.odometry.keyframe_manager, glim_tpu_torch.mapping.sub_mapping, "
+            "glim_tpu_torch.mapping.global_mapping, glim_tpu_torch.tools.backend_stress, "
+            "glim_tpu_torch.common.imu_integration, chip_smoke; "
             "from glim_tpu_torch.utils.registry import available_modules; "
             "assert 'odometry_estimation_gpu' in available_modules('odometry'); "
             "assert 'sub_mapping' in available_modules('sub_mapping'); "
+            "assert 'global_mapping' in available_modules('global_mapping'); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'glim_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -176,6 +179,8 @@ def test_unported_configurations_raise(tmp_path):
              "libodometry_estimation_ct.so"),
             ("config", "global", "config_sub_mapping", "config_sub_mapping_passthrough.json",
              "libsub_mapping_passthrough.so"),
+            ("config", "global", "config_global_mapping", "config_global_mapping_pose_graph.json",
+             "libglobal_mapping_pose_graph.so"),
             ("config_sub_mapping", "sub_mapping", "enable_optimization", True,
              "enable_optimization"),
             ("config_sub_mapping", "sub_mapping", "create_between_factors", True,
@@ -199,7 +204,8 @@ def test_unported_configurations_raise(tmp_path):
                                  device="cpu")
     with pytest.raises(NotImplementedError, match="async"):
         GlimTorch(cfg, async_mode=True, device="cpu")
-    GlimTorch(cfg, device="cpu")        # the default configuration builds
+    glim = GlimTorch(cfg, device="cpu")        # the default configuration builds
+    assert type(glim.global_mapping).__name__ == "GlobalMapping"
 
 
 def test_entry_points_default_to_cuda(tmp_path):
@@ -207,6 +213,8 @@ def test_entry_points_default_to_cuda(tmp_path):
     CPU; without a card GlimTorch raises and names the remedy."""
     import inspect
 
+    from glim_tpu_torch.mapping.global_mapping import (GlobalMapping,
+                                                       create_global_mapping_module)
     from glim_tpu_torch.mapping.sub_mapping import SubMapping, create_sub_mapping_module
     from glim_tpu_torch.odometry.keyframe_manager import KeyframeManager
     from glim_tpu_torch.odometry.odometry_estimation_cpu import OdometryEstimationCPU
@@ -216,20 +224,40 @@ def test_entry_points_default_to_cuda(tmp_path):
         OdometryEstimationIMU, create_odometry_estimation_gpu_module)
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.preprocess.cloud_preprocessor import CloudPreprocessor
+    from glim_tpu_torch.tools import backend_stress
     from glim_tpu_torch.utils.config import create_default_config_dir
     from glim_tpu_torch.utils.registry import available_modules
 
     entry_points = [GlimTorch, CloudPreprocessor, OdometryEstimationIMU,
                     OdometryEstimationCPU, OdometryEstimationCPUIMU, KeyframeManager,
-                    SubMapping, create_odometry_estimation_gpu_module,
-                    create_odometry_estimation_cpu_module, create_sub_mapping_module]
-    for kind in ("odometry", "sub_mapping"):
+                    SubMapping, GlobalMapping, create_odometry_estimation_gpu_module,
+                    create_odometry_estimation_cpu_module, create_sub_mapping_module,
+                    create_global_mapping_module, backend_stress.run]
+    for kind in ("odometry", "sub_mapping", "global_mapping"):
         entry_points += available_modules(kind).values()
     for fn in entry_points:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             GlimTorch(create_default_config_dir(str(tmp_path / "cfg")))
+
+
+def test_chip_smoke_gicp_backend_rehearsal_on_cpu():
+    """chip_smoke.run_slice with sub-mapping closing a submap every 4
+    keyframes, so that the CPU back-end (config_global_mapping_cpu.json)
+    refines a between factor for every submap after the first: the plain
+    nn_search on the CPU (no launches counted), and phase 4's checks."""
+    import chip_smoke
+
+    res = chip_smoke.run_slice(
+        "cpu", n_scans=30, n_scan_points=1500, scene_points=20000, seed=53,
+        odometry_overrides=dict(window_size=6, initialization_window_size=0.3,
+                                model_capacity=8192),
+        preprocess_overrides=dict(random_downsample_target=1000, downsample_resolution=0.4),
+        sub_mapping_overrides=dict(max_num_keyframes=4))
+    assert res["kernel_launches"] == res["between_launches"] == 0
+    assert res["submaps"] >= 3 and res["optimizes"] >= 1
+    chip_smoke.check_slice(res, min_window_steps=20)
 
 
 @pytest.fixture
@@ -243,7 +271,9 @@ def cuda():
 def test_slice_on_cuda_launches_the_kernel(cuda):
     import chip_smoke
 
-    res = chip_smoke.run_slice(cuda, n_scans=40, n_scan_points=8000, scene_points=60000)
-    assert res["window_steps"] >= 5
-    assert res["kernel_launches"] >= 5 * res["window_steps"]
-    assert res["poses_finite"] and res["ate"] < chip_smoke.ATE_BOUND
+    res = chip_smoke.run_slice(cuda, n_scans=40, n_scan_points=8000, scene_points=60000,
+                               sub_mapping_overrides=dict(max_num_keyframes=4))
+    # 40 scans less the 3 s initialization window leave about 9 window steps.
+    assert res["kernel_launches"] >= 5 * res["window_steps"] + 6 * res["between_refinements"]
+    assert res["between_refinements"] >= 1
+    chip_smoke.check_slice(res, min_window_steps=5)
