@@ -55,7 +55,23 @@ Phases (any failure exits non-zero):
      reaches; check the pre-closure ATE (1.9974 m +- 1e-3: the same numpy
      ring as the JAX tool's) and a post-closure ATE under 0.03 m, and print
      insert and optimize ms at the 16/32/64/128 checkpoints;
-  6. print the kernel summary JSON and, last, the device JSON.
+  6. the asynchronous pipeline through the port's offline runner: phase
+     5's sequence written as a dataset directory (scans/, times/, imu.csv,
+     stamps.csv) in a temporary directory, played by
+     glim_tpu_torch.tools.glim_runner.main (GlimTorch's default async
+     pipeline with workload backpressure, wait(), save(dump)) on the card;
+     check that every scan from the first estimate on has one, phase 5's
+     estimate and submap counts, every frame that reached sub-mapping in a
+     submap, the ATE bounds, at least one optimize and the dump's layout;
+     load the dump into a fresh GlobalMapping on the card (same submaps,
+     poses to 1e-9, factors, export_points count) and again as a second
+     session (twice the submaps, one gravity anchor, one optimize); print
+     async against sync scans/s, each worker's busy host ms a scan, the
+     largest queue depths, the drain, dump write / load seconds and MiB;
+     then the GICP slice asynchronously for 60 scans, whose nn_search
+     launches (from the odometry and the global worker threads) must equal
+     5 x window steps + 6 x between refinements;
+  7. print the kernel summary JSON and, last, the device JSON.
 
 ``--profile`` runs phase 5's configuration for 100 scans: host-clock time
 over scans 60-79 (the 48-state window is full and sub-mapping busy from
@@ -63,12 +79,14 @@ about scan 58), one ``torch.profiler`` window over scans 80-89 and one
 ``torch.cuda.set_sync_debug_mode("warn")`` count over scans 90-94; it
 writes the tables to DIR/profile_default.txt (DIR defaults to build/).
 It then does the same for phase 5b's eviction run (DIR/profile_evict.txt)
-and for phase 4's GICP slice (DIR/profile_gicp.txt), and profiles the ring
+and for phase 4's GICP slice (DIR/profile_gicp.txt), profiles the ring
 of phase 5c (DIR/profile_ring.txt: host and device ms, launches and host
-syncs per insert and per optimize).
+syncs per insert and per optimize) and phase 6's async pipeline
+(DIR/profile_async.txt: the spans the profiler records from the worker
+threads, and the device's busy share).
 
-``run_slice``, ``run_default`` and ``run_ring`` are importable and run on
-any device (the CPU tests rehearse them at a tiny size); ``main`` requires
+``run_slice``, ``run_default``, ``run_ring`` and ``run_async_default`` are
+importable and run on any device (the CPU tests rehearse them at a tiny size); ``main`` requires
 a CUDA device.
 """
 
@@ -99,6 +117,14 @@ RING_JAX_FACTORS = 627
 EVICT_OVERRIDES = [("config_odometry", "odometry_estimation", "keyframe_max_overlap", 1.0)]
 EVICT_SCANS = 80
 REL_TOL = 1e-4            # nn_search d2 tolerance: REL_TOL * max(1, d2)
+MAX_WORKLOAD = 10         # async feed: queued frames before the feeder waits
+# Phase 6: the async runner at full size, then the GICP slice asynchronously.
+ASYNC_GICP_SCANS = 60
+POSE_LOAD_TOL = 1e-9      # loaded poses against the dumped ones
+DUMP_FILES = ("graph.txt", "graph.npz", "graph.bin", "values.bin", "odom_lidar.txt",
+              "odom_imu.txt", "traj_lidar.txt", "traj_imu.txt", "config/config.json",
+              "000000/data.txt", "000000/imu_rate.txt", "000000/points_compact.bin",
+              "000000/covs_compact.bin")
 
 
 def _sequence(n_scans, n_scan_points, scene_points, seed):
@@ -122,6 +148,17 @@ def submap_origin_ate(submaps, seq):
     return ate_rmse([s.T_world_origin for s in submaps], gt, align=True)
 
 
+def _release_pipelines() -> None:
+    """Drop the callback observers of earlier runs in this process (they
+    hold those runs' pipelines, whose device memory would otherwise count
+    in the next run's peak) and collect the pipelines."""
+    import gc
+
+    from glim_tpu_torch.utils.callbacks import CallbackSlot
+    CallbackSlot.clear_all()
+    gc.collect()
+
+
 def _timed_run(glim, seq, dev, on_scan=None) -> dict:
     """Feed ``seq`` through ``glim`` and flush it, timed on the host clock up
     to a device sync; the nn_search launch count is zeroed just before and
@@ -132,7 +169,7 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
     from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks
     from glim_tpu_torch.ops.nn_search import nn_search
 
-    gm = glim.global_mapping
+    gm = glim.global_backend
     counts = dict(optimizes=0, between_launches=0)
     refine = gm._gicp_refine_between
 
@@ -145,7 +182,10 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
     def on_result(*_):
         counts["optimizes"] += 1
 
-    gm._gicp_refine_between = counted_refine
+    # The async pipeline launches from two threads at once: a difference of
+    # the shared count would mix them, so only the total is kept there.
+    if not glim.async_mode:
+        gm._gicp_refine_between = counted_refine
     handle = GlobalMappingCallbacks.on_smoother_update_result.add(on_result)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -159,10 +199,11 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
     seconds = time.perf_counter() - t0
     launches = nn_search.kernel_launches
     GlobalMappingCallbacks.on_smoother_update_result.remove(handle)
-    del gm._gicp_refine_between
+    if not glim.async_mode:
+        del gm._gicp_refine_between
 
     ests = glim.odometry_estimates
-    window = glim.odometry.window
+    window = _odometry(glim).window
     poses = [e.T_world_lidar for e in ests]
     gt = [seq.gt_poses[int(round(e.stamp * 10.0))] for e in ests]
     subs = glim.submaps
@@ -178,7 +219,7 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
         submaps=len(subs), optimizes=counts["optimizes"],
         matching_factors=len(gm.matching_factors), between_factors=len(gm.between_factors),
         between_refinements=gm.between_refinements,
-        between_launches=counts["between_launches"],
+        between_launches=None if glim.async_mode else counts["between_launches"],
         submap_origins_finite=bool(all(np.all(np.isfinite(s.T_world_origin)) for s in subs)),
         submap_ate=submap_origin_ate(subs, seq))
 
@@ -186,36 +227,26 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
 def run_slice(device, n_scans: int = 150, n_scan_points: int = 65536,
               scene_points: int = 400000, seed: int = 0,
               odometry_overrides=None, preprocess_overrides=None,
-              sub_mapping_overrides=None, on_scan=None) -> dict:
-    """Run GlimTorch (sync, config_odometry_cpu.json with the reference's
-    CPU back-end, config_global_mapping_cpu.json) over a synthetic sequence
-    at 10 Hz scans / 200 Hz IMU; returns the run's metrics. ``on_scan(i)``
-    runs before scan i."""
+              sub_mapping_overrides=None, on_scan=None, async_mode=False) -> dict:
+    """Run GlimTorch (sync, or async with ``async_mode``;
+    config_odometry_cpu.json with the reference's CPU back-end,
+    config_global_mapping_cpu.json) over a synthetic sequence at 10 Hz
+    scans / 200 Hz IMU; returns the run's metrics. ``on_scan(i)`` runs
+    before scan i."""
     from glim_tpu_torch.pipeline import GlimTorch
-    from glim_tpu_torch.utils.config import create_default_config_dir
 
+    _release_pipelines()
     dev = torch.device(device)
-    cfg_dir = create_default_config_dir(tempfile.mkdtemp(prefix="glim_smoke_"))
-
-    def edit(fname, section, values):
-        path = os.path.join(cfg_dir, fname)
-        with open(path) as f:
-            cfg = json.load(f)
-        cfg[section].update(values)
-        with open(path, "w") as f:
-            json.dump(cfg, f, indent=2)
-
-    edit("config.json", "global", {"config_odometry": "config_odometry_cpu.json",
-                                   "config_global_mapping": "config_global_mapping_cpu.json"})
-    if odometry_overrides:
-        edit("config_odometry_cpu.json", "odometry_estimation", odometry_overrides)
-    if preprocess_overrides:
-        edit("config_preprocess.json", "preprocess", preprocess_overrides)
-    if sub_mapping_overrides:
-        edit("config_sub_mapping_gpu.json", "sub_mapping", sub_mapping_overrides)
-
+    cfg_dir = config_dir(
+        [("config", "global", "config_odometry", "config_odometry_cpu.json"),
+         ("config", "global", "config_global_mapping", "config_global_mapping_cpu.json")]
+        + [(logical, module, k, v) for logical, module, values in (
+            ("config_odometry", "odometry_estimation", odometry_overrides),
+            ("config_preprocess", "preprocess", preprocess_overrides),
+            ("config_sub_mapping", "sub_mapping", sub_mapping_overrides))
+           for k, v in (values or {}).items()])
     seq = _sequence(n_scans, n_scan_points, scene_points, seed)
-    glim = GlimTorch(cfg_dir, async_mode=False, device=dev)
+    glim = GlimTorch(cfg_dir, async_mode=async_mode, device=dev)
     return _timed_run(glim, seq, dev, on_scan)
 
 
@@ -226,8 +257,13 @@ def check_slice(res: dict, name: str = "GICP slice", min_window_steps: int = 100
     submap after the first, finite poses and the ATE bound."""
     on_card = res["max_memory_allocated"] is not None
     want = 5 * res["window_steps"] + 6 * res["between_refinements"]
-    if on_card and (res["kernel_launches"] < want
-                    or res["between_launches"] != 6 * res["between_refinements"]):
+    if res["between_launches"] is None:      # async: the total, exactly
+        if on_card and res["kernel_launches"] != want:
+            raise AssertionError(f"{name}: {res['kernel_launches']} nn_search launches, "
+                                 f"want {want} (5 x {res['window_steps']} window steps + 6 x "
+                                 f"{res['between_refinements']} between refinements)")
+    elif on_card and (res["kernel_launches"] < want
+                      or res["between_launches"] != 6 * res["between_refinements"]):
         raise AssertionError(
             f"{name}: {res['kernel_launches']} nn_search launches ({res['between_launches']} "
             f"in the between refinement), want >= {want} (6 x {res['between_refinements']})")
@@ -245,8 +281,9 @@ def check_slice(res: dict, name: str = "GICP slice", min_window_steps: int = 100
 
 
 def _feed(glim, seq, on_scan=None):
-    """All scans with their IMU (up to 0.12 s past each scan stamp);
-    ``on_scan(i)`` runs before scan i is inserted."""
+    """All scans with their IMU (up to 0.12 s past each scan stamp),
+    waiting while an async pipeline's workload exceeds MAX_WORKLOAD (the
+    runner's default); ``on_scan(i)`` runs before scan i is inserted."""
     imu_i = 0
     for i, raw in enumerate(seq.scans):
         if on_scan is not None:
@@ -255,29 +292,37 @@ def _feed(glim, seq, on_scan=None):
             glim.insert_imu(seq.imu[imu_i, 0], seq.imu[imu_i, 1:4], seq.imu[imu_i, 4:7])
             imu_i += 1
         glim.insert_frame(raw)
+        while glim.workload() > MAX_WORKLOAD:
+            time.sleep(0.01)
+
+
+def _odometry(glim):
+    """The odometry module itself (inside its async wrapper)."""
+    return glim.odometry.odometry if glim.async_mode else glim.odometry
 
 
 def run_default(device, n_scans: int = 150, n_scan_points: int = 65536,
                 scene_points: int = 400000, seed: int = 0, overrides=None,
-                on_scan=None) -> dict:
-    """Run GlimTorch on the default config directory, unedited but for
-    ``overrides`` ((config, module, name, value) tuples: the CPU rehearsal's
-    sizes, phase 5b's keyframe edit), over a synthetic sequence at 10 Hz
-    scans / 200 Hz IMU; returns the run's metrics. ``on_scan(i)`` runs
-    before scan i."""
+                on_scan=None, async_mode=False) -> dict:
+    """Run GlimTorch (sync, or async with ``async_mode``) on the default
+    config directory, unedited but for ``overrides`` ((config, module,
+    name, value) tuples: the CPU rehearsal's sizes, phase 5b's keyframe
+    edit), over a synthetic sequence at 10 Hz scans / 200 Hz IMU; returns
+    the run's metrics. ``on_scan(i)`` runs before scan i."""
     from glim_tpu_torch.mapping.callbacks import SubMappingCallbacks
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.utils.config import create_default_config_dir
 
+    _release_pipelines()
     dev = torch.device(device)
     cfg_dir = create_default_config_dir(tempfile.mkdtemp(prefix="glim_smoke_default_"))
     seq = _sequence(n_scans, n_scan_points, scene_points, seed)
-    glim = GlimTorch(cfg_dir, async_mode=False, device=dev, overrides=overrides)
+    glim = GlimTorch(cfg_dir, async_mode=async_mode, device=dev, overrides=overrides)
     to_sub = []
     SubMappingCallbacks.on_insert_frame.add(lambda f: to_sub.append(f.id))
     res = _timed_run(glim, seq, dev, on_scan)
 
-    kfm = glim.odometry.keyframes
+    kfm = _odometry(glim).keyframes
     subs = glim.submaps
     res.update(
         kf_inserts=kfm.next_order, kf_evictions=kfm.next_order - kfm.count,
@@ -350,6 +395,201 @@ def check_ring(res: dict, pre_ate: float = RING_PRE_ATE) -> None:
     if not (res["poses_finite"] and res["ate_post_closure_m"] < RING_POST_BOUND):
         raise AssertionError(f"ring: post-closure ATE {res['ate_post_closure_m']:.6f} m "
                              f">= {RING_POST_BOUND} m or non-finite poses")
+
+
+def config_dir(overrides=None, prefix: str = "glim_smoke_") -> str:
+    """A default config directory with ``overrides`` ((config, module,
+    name, value) tuples, applied in order; "config" is config.json) written
+    into its files."""
+    from glim_tpu_torch.utils.config import create_default_config_dir
+
+    cfg_dir = create_default_config_dir(tempfile.mkdtemp(prefix=prefix))
+    for logical, module, name, value in overrides or []:
+        # config.json maps the logical names to files (an override may remap).
+        with open(os.path.join(cfg_dir, "config.json")) as f:
+            files = json.load(f)["global"]
+        path = os.path.join(cfg_dir, files.get(logical, logical + ".json"))
+        with open(path) as f:
+            cfg = json.load(f)
+        cfg[module][name] = value
+        with open(path, "w") as f:
+            json.dump(cfg, f, indent=2)
+    return cfg_dir
+
+
+def _dir_mib(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 2**20
+
+
+def run_async_default(device, n_scans: int = 150, n_scan_points: int = 65536,
+                      scene_points: int = 400000, seed: int = 0, overrides=None,
+                      work_dir=None) -> dict:
+    """Phase 6: phase 5's sequence written as a dataset directory, played by
+    the port's runner (``tools/glim_runner.main``: GlimTorch's default
+    async pipeline, workload backpressure, ``wait()``, ``save(dump)``) on
+    ``device``; then the dump loaded into a fresh GlobalMapping on
+    ``device``, and again as a second session, optimized once. The dataset
+    and the dump live in a temporary directory under ``work_dir``, removed
+    at the end. Returns the run's metrics."""
+    import shutil
+
+    from glim_tpu_torch.io.synthetic import ate_rmse
+    from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks, SubMappingCallbacks
+    from glim_tpu_torch.mapping.global_mapping import GlobalMapping
+    from glim_tpu_torch.tools import glim_runner
+    from glim_tpu_torch.utils import profiling
+
+    _release_pipelines()
+    dev = torch.device(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    seq = _sequence(n_scans, n_scan_points, scene_points, seed)
+    tmp = tempfile.mkdtemp(prefix="glim_smoke_async_", dir=work_dir)
+    try:
+        data, dump = os.path.join(tmp, "dataset"), os.path.join(tmp, "dump")
+        glim_runner.save_dataset(data, seq.imu, [(s.stamp, s.points, s.times)
+                                                 for s in seq.scans])
+        data_mib = _dir_mib(data)
+        to_sub, optimizes = [], []
+        SubMappingCallbacks.on_insert_frame.add(lambda f: to_sub.append(f.id))
+        handle = GlobalMappingCallbacks.on_smoother_update_result.add(
+            lambda *_: optimizes.append(1))
+        profiling.report(reset=True)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        run = glim_runner.main([data, "--dump", dump, "--device", str(dev),
+                                "--config", config_dir(overrides, "glim_smoke_async_cfg_")])
+        sync()
+        stats = profiling.report()
+        GlobalMappingCallbacks.on_smoother_update_result.remove(handle)
+        glim = run["glim"]
+        gm = glim.global_backend
+        ests = glim.odometry_estimates
+        poses = [e.T_world_lidar for e in ests]
+        gt = [seq.gt_poses[int(round(e.stamp * 10.0))] for e in ests]
+        subs = gm.submaps
+        busy = {k: stats[k]["total_s"] * 1e3 / n_scans if k in stats else 0.0
+                for k in ("preprocess", "odometry", "sub_mapping", "global_mapping")}
+        res = dict(
+            scans=n_scans, estimates=len(ests), estimate_ids=[e.id for e in ests],
+            estimate_stamps_are_the_last_scans=[e.stamp for e in ests]
+            == [s.stamp for s in seq.scans[len(seq.scans) - len(ests):]],
+            seconds=run["seconds"], scans_per_s=n_scans / run["seconds"],
+            wait_seconds=run["wait_seconds"], dump_write_seconds=run["save_seconds"],
+            dataset_mib=data_mib, dump_mib=_dir_mib(dump),
+            busy_host_ms_per_scan=busy,
+            max_queue_depth=dict(
+                odometry=glim.odometry.input_frame_queue.high_water,
+                sub_mapping=glim.sub_mapping.input_frame_queue.high_water,
+                global_mapping=glim.global_mapping.input_submap_queue.high_water),
+            max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            poses_finite=bool(all(np.all(np.isfinite(T)) for T in poses)),
+            ate=ate_rmse(poses, gt, align=True), submaps=len(subs),
+            frames_per_submap=[len(s.frames) for s in subs],
+            submap_frames_total=sum(len(s.frames) for s in subs),
+            frames_to_sub_mapping=len(to_sub), optimizes=len(optimizes),
+            matching_factors=len(gm.matching_factors),
+            submap_origins_finite=bool(all(np.all(np.isfinite(s.T_world_origin))
+                                           for s in subs)),
+            submap_ate=submap_origin_ate(subs, seq),
+            submap_device=subs[0].frame.points.device.type if subs else None,
+            dump_missing=[f for f in DUMP_FILES if not os.path.exists(os.path.join(dump, f))])
+
+        # The dump into a fresh back-end on the device, then a second session.
+        fresh = GlobalMapping(gm.params, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        fresh.load(dump)
+        sync()
+        res["dump_load_seconds"] = time.perf_counter() - t0
+        saved = np.load(os.path.join(dump, "graph.npz"))["poses"]
+        res.update(
+            loaded_submaps=len(fresh.submaps), loaded_ids_equal=[s.id for s in fresh.submaps]
+            == [s.id for s in subs],
+            loaded_pose_err=float(max(np.abs(a - b).max() for a, b in zip(fresh.poses, saved)))
+            if fresh.poses else None,
+            loaded_factors_equal=fresh.matching_factors == gm.matching_factors,
+            export_points=len(gm.export_points()),
+            loaded_export_points=len(fresh.export_points()))
+        fresh.load(dump, session_offset=1)
+        merged_opts = []
+        handle = GlobalMappingCallbacks.on_smoother_update_result.add(
+            lambda *_: merged_opts.append(1))
+        fresh.optimize()
+        sync()
+        GlobalMappingCallbacks.on_smoother_update_result.remove(handle)
+        res.update(merged_submaps=len(fresh.submaps), gravity_anchors=list(fresh.gravity_anchors),
+                   merged_optimizes=len(merged_opts),
+                   merged_poses_finite=bool(all(np.all(np.isfinite(T)) for T in fresh.poses)))
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_async(res: dict, sync: dict = None, name: str = "async runner") -> None:
+    """Phase 6's failure conditions: every scan from the first estimate on
+    has one (the sync run's estimate ids and submap count, when given),
+    every frame that reached sub-mapping lies in a submap, the ATE bounds,
+    at least one optimize, the dump's reference layout, and the dump loaded
+    back (same submaps, poses to POSE_LOAD_TOL, the same factors and
+    export_points count; a second session: twice the submaps, one gravity
+    anchor, one optimize)."""
+    if not (res["poses_finite"] and res["estimate_stamps_are_the_last_scans"]):
+        raise AssertionError(f"{name}: non-finite poses or scans without an estimate")
+    if res["estimate_ids"] != list(range(res["estimates"])) or (
+            sync is not None and res["estimates"] != sync["estimates"]):
+        raise AssertionError(f"{name}: {res['estimates']} estimates, ids not consecutive "
+                             f"or the sync run's {sync and sync['estimates']}")
+    if sync is not None and res["submaps"] != sync["submaps"]:
+        raise AssertionError(f"{name}: {res['submaps']} submaps, the sync run {sync['submaps']}")
+    if res["submaps"] < 2 or res["submap_frames_total"] != res["frames_to_sub_mapping"]:
+        raise AssertionError(f"{name}: {res['submaps']} submaps holding "
+                             f"{res['submap_frames_total']} frames, "
+                             f"{res['frames_to_sub_mapping']} reached sub-mapping")
+    if not res["ate"] < DEFAULT_ATE_BOUND:
+        raise AssertionError(f"{name}: ATE {res['ate']:.4f} m >= {DEFAULT_ATE_BOUND} m")
+    if not (res["submap_origins_finite"] and res["submap_ate"] is not None
+            and res["submap_ate"] < SUBMAP_ATE_BOUND):
+        raise AssertionError(f"{name}: submap-origin ATE {res['submap_ate']} m")
+    if res["optimizes"] < 1:
+        raise AssertionError(f"{name}: global mapping never optimized")
+    if res["dump_missing"]:
+        raise AssertionError(f"{name}: the dump lacks {res['dump_missing']}")
+    n = res["submaps"]
+    if not (res["loaded_submaps"] == n and res["loaded_ids_equal"]
+            and res["loaded_pose_err"] <= POSE_LOAD_TOL and res["loaded_factors_equal"]
+            and res["loaded_export_points"] == res["export_points"]):
+        raise AssertionError(f"{name}: the dump loaded back differs: " + json.dumps(
+            {k: res[k] for k in ("loaded_submaps", "loaded_ids_equal", "loaded_pose_err",
+                                 "loaded_factors_equal", "export_points",
+                                 "loaded_export_points")}))
+    if not (res["merged_submaps"] == 2 * n and res["gravity_anchors"] == [n]
+            and res["merged_optimizes"] == 1 and res["merged_poses_finite"]):
+        raise AssertionError(f"{name}: second session: {res['merged_submaps']} submaps, "
+                             f"anchors {res['gravity_anchors']}, "
+                             f"{res['merged_optimizes']} optimizes")
+
+
+def _print_async(res: dict, sync: dict, card: str) -> None:
+    print("async: " + json.dumps({k: v for k, v in res.items() if k != "estimate_ids"}))
+    busy = res["busy_host_ms_per_scan"]
+    print(f"async [{card}]: {res['scans']} scans in {res['seconds']:.3f} s = "
+          f"{res['scans_per_s']:.4f} scans/s through the runner (sync phase 5 in this call: "
+          f"{sync['scans_per_s']:.4f}), wait() drained for {res['wait_seconds']:.3f} s")
+    print(f"async [{card}]: busy host ms a scan: preprocess (feeder) {busy['preprocess']:.2f}, "
+          f"odometry worker {busy['odometry']:.2f}, sub-mapping worker "
+          f"{busy['sub_mapping']:.2f}, global worker {busy['global_mapping']:.2f}; largest "
+          f"queue depths {res['max_queue_depth']}")
+    print(f"async [{card}]: {res['optimizes']} optimizes, {res['submaps']} submaps "
+          f"(sync {sync['submaps']}), {res['estimates']} estimates (sync {sync['estimates']}), "
+          f"ATE {res['ate']:.4f} m, submap-origin ATE {res['submap_ate']} m, max memory "
+          f"{res['max_memory_allocated'] / 2**20:.1f} MiB")
+    print(f"async [{card}]: dump {res['dump_mib']:.2f} MiB written in "
+          f"{res['dump_write_seconds']:.3f} s, loaded in {res['dump_load_seconds']:.3f} s "
+          f"(pose error {res['loaded_pose_err']}, {res['loaded_export_points']} points); "
+          f"second session {res['merged_submaps']} submaps, anchors {res['gravity_anchors']}, "
+          f"{res['merged_optimizes']} optimize; dataset {res['dataset_mib']:.1f} MiB")
 
 
 def _card() -> str:
@@ -969,6 +1209,82 @@ def profile_ring(card: str, out_dir: str = "build", n_submaps: int = RING_SUBMAP
         f.write(text + "\n")
 
 
+def profile_async(card: str, out_dir: str = "build", n_scans: int = 100,
+                  prof=(60, 80)) -> None:
+    """Phase 6's pipeline (the default configuration, GlimTorch's async
+    workers, fed in memory with workload backpressure) with a
+    torch.profiler window over scans [prof), opened and closed on the
+    feeding thread: which spans the profiler recorded and on how many
+    threads, host ms per span, and the device's kernel ms and busy share
+    of the window. The table goes to out_dir/profile_async.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = {}
+
+    def on_scan(i):
+        if i == prof[0]:
+            torch.cuda.synchronize()
+            state["t0"] = time.perf_counter()
+            state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            state["prof"].__enter__()
+        if i == prof[1]:
+            torch.cuda.synchronize()
+            state["prof"].__exit__(None, None, None)
+            state["wall_ms"] = (time.perf_counter() - state["t0"]) * 1e3
+
+    res = run_default("cuda", n_scans=n_scans, on_scan=on_scan, async_mode=True)
+    check_default(res, "async profile")
+    evs = state["prof"].events()
+    n = prof[1] - prof[0]
+    kernels = [e for e in evs if e.device_type == DeviceType.CUDA and e.name not in SPANS]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    launches = sum(1 for e in evs if e.device_type == DeviceType.CPU and e.name in LAUNCH_NAMES)
+    rows = {}
+    for e in evs:
+        if e.device_type == DeviceType.CPU and e.name in SPANS:
+            h, c, threads = rows.get(e.name, (0.0, 0, set()))
+            rows[e.name] = (h + e.time_range.elapsed_us(), c + 1, threads | {e.thread})
+    threads = {e.thread for e in evs if e.device_type == DeviceType.CPU}
+    lines = [f"card: {card}",
+             f"run: the default configuration, async, {n_scans} scans ({res['scans_per_s']:.4f} "
+             f"scans/s, {res['optimizes']} optimizes); profile window scans {prof[0]}-"
+             f"{prof[1] - 1} on the feeding thread: wall {state['wall_ms'] / n:.1f} ms a scan, "
+             f"device kernel time {dev_ms / n:.2f} ms a scan, busy share "
+             f"{dev_ms / state['wall_ms']:.4f}, {launches / n:.1f} kernel launches a scan, CPU "
+             f"events on {len(threads)} threads",
+             "span: host ms a scan, calls a scan, threads"]
+    for k in SPANS:
+        if k in rows:
+            h, c, th = rows[k]
+            lines.append(f"  {k}: {h / 1e3 / n:.2f}, {c / n:.2f}, {len(th)}")
+    missing = [k for k in ("preprocess", "odometry", "window_scan_step", "sub_mapping",
+                           "global_mapping") if k not in rows]
+    lines.append(f"spans not recorded in the window: {missing or 'none'}")
+    text = "\n".join(lines)
+    print(text)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_async.txt"), "w") as f:
+        f.write(text + "\n")
+
+
+def ab_async(card: str, order=(False, True, True, False)) -> list:
+    """Phase 5's run (150 full-size scans of the default configuration)
+    through GlimTorch sync and async in turns (sync, async, async, sync by
+    default) in one call: whole-run scans/s of each, to set the async
+    pipeline's ratio against the host's own spread."""
+    rows = []
+    for async_mode in order:
+        res = run_default("cuda", async_mode=async_mode)
+        check_default(res, "async" if async_mode else "sync")
+        rows.append(dict(async_mode=async_mode, scans_per_s=res["scans_per_s"],
+                         seconds=res["seconds"], submaps=res["submaps"],
+                         optimizes=res["optimizes"], ate=res["ate"],
+                         max_memory_mib=res["max_memory_allocated"] / 2**20))
+        print(f"ab [{card}]: " + json.dumps(rows[-1]))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -983,6 +1299,7 @@ def main() -> int:
                         min_evictions=1)
         profile_default(card, *args[1:2], name="gicp")
         profile_ring(card, *args[1:2])
+        profile_async(card, *args[1:2])
         return 0
     # --- 1. the card ---
     card = _card()
@@ -1029,7 +1346,19 @@ def main() -> int:
     _print_ring(rres, card)
     check_ring(rres)
 
-    # --- 6. summary ---
+    # --- 6. the async runner at full size, its dump, and the GICP slice async ---
+    ares = run_async_default("cuda")
+    _print_async(ares, dres, card)
+    check_async(ares, dres)
+    gres = run_slice("cuda", n_scans=ASYNC_GICP_SCANS, async_mode=True)
+    print("async gicp: " + json.dumps(gres))
+    print(f"async gicp [{card}]: {gres['scans']} scans in {gres['seconds']:.3f} s = "
+          f"{gres['scans_per_s']:.4f} scans/s, {gres['kernel_launches']} nn_search launches "
+          f"= 5 x {gres['window_steps']} window steps + 6 x {gres['between_refinements']} "
+          f"between refinements, ATE {gres['ate']:.4f} m")
+    check_slice(gres, "async GICP slice", min_window_steps=ASYNC_GICP_SCANS // 3)
+
+    # --- 7. summary ---
     print(json.dumps({"kernels": [{
         "name": "nn_search", "route": "cuda",
         "source": "glim_tpu_torch/csrc/nn_search.cu",
@@ -1037,6 +1366,7 @@ def main() -> int:
         "launches": res["kernel_launches"],
         "launches_between_refinement": res["between_launches"],
         "launches_default": dres["kernel_launches"], "launches_ring": ring_launches,
+        "launches_async_gicp": gres["kernel_launches"],
         "max_abs_err": max_err, **timing}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,1 +1,2 @@
-"""Synthetic sequences and trajectory evaluation (numpy)."""
+"""Synthetic sequences, trajectory evaluation, scan loaders and map dumps
+(numpy host code; dumps read device clouds in one copy a submap)."""

@@ -26,8 +26,7 @@ voxel resolution stays a device scalar.
 
 Not ported: the background precompile worker (it exists only because XLA
 compiles one program per shape), the device mesh (multi-GPU comes last)
-and the viewer's loop-search toggle (the viewer is not ported). ``save`` /
-``load`` wait for ``io/dump.py``.
+and the viewer's loop-search toggle (the viewer is not ported).
 """
 
 from __future__ import annotations
@@ -48,6 +47,7 @@ from glim_tpu_torch.ops import voxelmap as vmx
 from glim_tpu_torch.ops.pointops import INVALID_HASH
 from glim_tpu_torch.types import SubMap, to_numpy, upload
 from glim_tpu_torch.utils.logging import create_module_logger
+from glim_tpu_torch.utils.profiling import profile_scope
 from glim_tpu_torch.utils.registry import register_module
 
 logger = create_module_logger("global")
@@ -173,7 +173,7 @@ class GlobalMapping(GlobalMappingBase):
             self._imu_buffer.append(np.concatenate([[stamp], linear_acc, angular_vel]))
 
     def insert_submap(self, submap: SubMap) -> None:
-        with record_function("global/insert_submap"):
+        with profile_scope("global/insert_submap"):
             self._insert_submap_impl(submap)
 
     def _ensure_covs(self, submap: SubMap) -> None:
@@ -709,7 +709,7 @@ class GlobalMapping(GlobalMappingBase):
         return self._new_loop_since_opt or len(self.submaps) > self._last_opt_count
 
     def optimize(self) -> None:
-        with record_function("global/optimize"):
+        with profile_scope("global/optimize"):
             self._optimize_impl()
 
     def _solve(self, args: dict, dims: dict, N: int, J: int):
@@ -861,12 +861,59 @@ class GlobalMapping(GlobalMappingBase):
         return np.concatenate(out, axis=0) if out else np.zeros((0, 3))
 
     def save(self, path: str) -> None:
-        raise NotImplementedError("GlobalMapping.save needs io/dump.py, which is not "
-                                  "ported to glim_tpu_torch yet")
+        """Write the map dump (``io/dump.py``): submaps, optimized and
+        odometry poses, between and matching factors, translation priors."""
+        from glim_tpu_torch.io.dump import save_dump
+        save_dump(path, self.submaps, self.poses, odom_poses=self.odom_poses,
+                  factors=dict(i=[f[0] for f in self.between_factors],
+                               j=[f[1] for f in self.between_factors],
+                               Z=[f[2] for f in self.between_factors],
+                               info=[f[3] for f in self.between_factors],
+                               huber=[-1.0] * len(self.between_factors),
+                               matching=list(self.matching_factors),
+                               translation_priors=[
+                                   (i, pos.tolist(), si.tolist())
+                                   for i, pos, si in self.translation_priors]))
 
     def load(self, path: str, session_offset: int = 0) -> None:
-        raise NotImplementedError("GlobalMapping.load needs io/dump.py, which is not "
-                                  "ported to glim_tpu_torch yet")
+        """Load a dump onto this back-end's device, each cloud padded to
+        the capacity of the submaps already here (their matching slices
+        are stacked together). Loaded submaps are appended after the
+        existing ones and their factors re-keyed; the first submap of an
+        appended session becomes a gravity anchor (multi-session merge,
+        reference :690-910)."""
+        from glim_tpu_torch.io.dump import load_dump
+        capacity = int(self.submaps[0].frame.points.shape[0]) if self.submaps else None
+        submaps, poses, factors = load_dump(path, self.device, capacity)
+        base = len(self.submaps)
+        if base > 0 and submaps:
+            self.gravity_anchors.append(base)
+        for sm, T in zip(submaps, poses):
+            sm.id = base + sm.id
+            sm.session_id = session_offset
+            self._ensure_covs(sm)
+            self.submaps.append(sm)
+            self.poses.append(np.asarray(T, np.float64))
+            self.odom_poses.append(np.asarray(T, np.float64))
+            self.voxelmaps.append(self._build_voxelmap(sm))
+            self._append_match_slice(sm)
+        if factors:
+            for i, j, Z, info in zip(factors["i"], factors["j"], factors["Z"],
+                                     factors["info"]):
+                info = np.asarray(info, np.float64)
+                if info.ndim == 1:       # legacy diagonal sqrt-info dumps
+                    info = np.diag(info) ** 2
+                self.between_factors.append((base + int(i), base + int(j),
+                                             np.asarray(Z), info))
+            # One batched search registers every matching factor.
+            self._register_matching_factors_batch(
+                [(base + int(a), base + int(b)) for a, b in factors.get("matching", [])])
+            for tp in factors.get("translation_priors", []):
+                self.translation_priors.append(
+                    (base + int(tp[0]), np.asarray(tp[1], np.float32),
+                     np.asarray(tp[2], np.float32)))
+        logger.info("loaded %d submaps from %s (session offset %d)",
+                    len(submaps), path, session_offset)
 
 
 def _orthonormalize(T: np.ndarray) -> np.ndarray:

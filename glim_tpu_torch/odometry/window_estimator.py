@@ -145,8 +145,9 @@ def _f64(*ts):
 
 def _prior_system(T0, v0, b0, T_anchor, v_anchor, b_anchor, H_prior, b_prior):
     zero = torch.zeros(STATE_DIM, dtype=torch.float64, device=T0.device)
-    J, r = jacfwd(_prior_res, has_aux=True)(
-        zero, *_f64(T0, v0, b0, T_anchor, v_anchor, b_anchor))
+    with lie.forward_ad_lock:
+        J, r = jacfwd(_prior_res, has_aux=True)(
+            zero, *_f64(T0, v0, b0, T_anchor, v_anchor, b_anchor))
     J, r = J.float(), r.float()
     H = J.T @ H_prior @ J
     b = J.T @ (H_prior @ r + b_prior)
@@ -179,17 +180,19 @@ def _imu_systems(J: torch.Tensor, r: torch.Tensor, cov: torch.Tensor):
 
 def _imu_factor_system(T_i, v_i, T_j, v_j, b_i, pre: PreintegratedImu, gravity):
     zero = torch.zeros(2 * STATE_DIM, dtype=torch.float64, device=T_i.device)
-    J, r = _imu_jac(zero, *_f64(T_i, v_i, T_j, v_j, b_i), _f64(*pre.astuple()),
-                    gravity.double())
+    with lie.forward_ad_lock:
+        J, r = _imu_jac(zero, *_f64(T_i, v_i, T_j, v_j, b_i), _f64(*pre.astuple()),
+                        gravity.double())
     return _imu_systems(J.float(), r.float(), pre.cov)
 
 
 def _imu_factor_systems(T_i, v_i, T_j, v_j, b_i, pre: PreintegratedImu, gravity):
     """_imu_factor_system over a leading batch of state pairs."""
     zero = torch.zeros(2 * STATE_DIM, dtype=torch.float64, device=T_i.device)
-    J, r = vmap(_imu_jac, in_dims=(None, 0, 0, 0, 0, 0, 0, None))(
-        zero, *_f64(T_i, v_i, T_j, v_j, b_i), _f64(*pre.astuple()),
-        gravity.double())
+    with lie.forward_ad_lock:
+        J, r = vmap(_imu_jac, in_dims=(None, 0, 0, 0, 0, 0, 0, None))(
+            zero, *_f64(T_i, v_i, T_j, v_j, b_i), _f64(*pre.astuple()),
+            gravity.double())
     return _imu_systems(J.float(), r.float(), pre.cov)
 
 

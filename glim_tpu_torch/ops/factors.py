@@ -18,7 +18,7 @@ from typing import Callable, Tuple
 import torch
 from torch.func import jacfwd, vmap
 
-from glim_tpu_torch.ops.lie import se3_exp, se3_inv, se3_log
+from glim_tpu_torch.ops.lie import forward_ad_lock, se3_exp, se3_inv, se3_log
 
 
 def _f64(a):
@@ -46,7 +46,8 @@ def batched_jacobian(res: Callable, n: int, *batched, shared=()
     first = b[0][0] if isinstance(b[0], tuple) else b[0]
     zero = torch.zeros(n, dtype=torch.float64, device=first.device)
     in_dims = (None,) + (0,) * len(b) + (None,) * len(s)
-    J, r = vmap(jacfwd(aux, has_aux=True), in_dims=in_dims)(zero, *b, *s)
+    with forward_ad_lock:
+        J, r = vmap(jacfwd(aux, has_aux=True), in_dims=in_dims)(zero, *b, *s)
     return J.float(), r.float()
 
 

@@ -5,13 +5,22 @@ xi = [omega (3), v (3)]. Every function is branch-free (Taylor blends via
 ``torch.where`` on sanitised inputs) and builds its outputs with
 ``stack``/``cat`` rather than in-place writes, so it composes with
 ``torch.func.vmap`` and forward-mode ``torch.func.jacfwd``.
+
+``forward_ad_lock``: torch's forward-mode AD keeps one dual level for the
+whole process, so two threads evaluating ``jacfwd`` at once tear down each
+other's level ("no level exists"). Every ``jacfwd`` evaluation of the port
+holds this lock (the async pipeline's odometry and global workers both
+linearize with it).
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 _EPS = 1e-8
+forward_ad_lock = threading.Lock()
 
 
 def skew(w: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ index, d2 clamped >= 0 at the end, invalid queries -> (0, +inf).
 ``nn_search`` dispatches on where its tensors lie: CPU tensors go to
 ``nn_search_plain``; CUDA tensors launch the hand-written kernel in
 ``glim_tpu_torch/csrc/nn_search.cu`` or raise — there is no fallback. Each
-call that launches it adds one to ``nn_search.kernel_launches`` (the kernel
+call that launches it adds one to ``nn_search.kernel_launches`` under a lock
+(the asynchronous pipeline launches it from two worker threads; the kernel
 is three device launches: pack, split search, merge).
 
 The kernel splits the targets across blocks; ``launch_geometry`` picks the
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Tuple
 
 import torch
@@ -165,8 +167,10 @@ def nn_search(queries: torch.Tensor, query_mask: torch.Tensor,
     if rc != 0:
         raise RuntimeError("nn_search kernel launch failed: "
                            f"{lib.glim_cuda_error_string(rc).decode()} ({rc})")
-    nn_search.kernel_launches += 1
+    with _count_lock:
+        nn_search.kernel_launches += 1
     return out_idx, out_d2
 
 
 nn_search.kernel_launches = 0
+_count_lock = threading.Lock()

@@ -1,17 +1,26 @@
 """GlimTorch: the config-driven front of the PyTorch port.
 
-Twin of ``glim_tpu/pipeline.py::GlimTPU`` in synchronous mode: reads
-config.json, builds the time keeper, the preprocessor and the configured
-odometry, sub-mapping and global-mapping modules on ``device`` (the card by
-default; without one it raises unless ``device="cpu"``), and exposes
-``insert_imu`` / ``insert_frame`` / ``wait`` / ``odometry_estimates`` /
-``submaps`` / ``export_points``. Frames marginalized out of the odometry
-window go to sub-mapping and each new submap to global mapping, as in
-``GlimTPU``'s synchronous path; ``submaps`` are the global mapping's, with
-their optimized ``T_world_origin``.
+Twin of ``glim_tpu/pipeline.py::GlimTPU``: reads config.json, builds the time
+keeper, the preprocessor and the configured odometry, sub-mapping and
+global-mapping modules on ``device`` (the card by default; without one it
+raises unless ``device="cpu"``), and exposes ``insert_imu`` /
+``insert_frame`` / ``insert_image`` / ``workload`` / ``wait`` / ``save`` /
+``odometry_estimates`` / ``submaps`` / ``export_points``.
 
-The async worker threads (``async_mode=True``), extension modules and
-dumps are not ported. A module the port lacks (for example
+By default (``async_mode=True``) each stage runs on its own worker thread
+behind a queue (``AsyncOdometryEstimation``, ``AsyncSubMapping``,
+``AsyncGlobalMapping``), as in ``GlimTPU``; all three queue their device
+work on the device's default stream, in the order the threads reach it.
+``workload()`` is the deepest input queue, for the feeder's backpressure.
+A stage whose worker raised makes ``workload()``, ``wait()`` and the next
+``insert_frame`` raise, after the other workers are stopped. With
+``async_mode=False`` everything runs inline: frames marginalized out of the
+odometry window go to sub-mapping and each new submap to global mapping on
+the caller's thread.
+
+``submaps`` are the global mapping's, with their optimized
+``T_world_origin``. Extension modules (``glim_tpu/ext/``) are not ported: a
+non-empty ``extension_modules`` raises. A module the port lacks (for example
 ``libglobal_mapping_pose_graph.so``) raises, naming the module; it is never
 swapped for another.
 """
@@ -23,11 +32,13 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from glim_tpu_torch.mapping.async_global_mapping import AsyncGlobalMapping
+from glim_tpu_torch.mapping.async_sub_mapping import AsyncSubMapping
 from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks
 from glim_tpu_torch.mapping.global_mapping_base import GlobalMappingBase
 from glim_tpu_torch.mapping.sub_mapping_base import SubMappingBase
+from glim_tpu_torch.odometry.async_odometry_estimation import AsyncOdometryEstimation
 from glim_tpu_torch.odometry.estimation_base import OdometryEstimationBase
 from glim_tpu_torch.preprocess.cloud_preprocessor import (CloudPreprocessor,
                                                           CloudPreprocessorParams)
@@ -35,6 +46,7 @@ from glim_tpu_torch.types import EstimationFrame, RawPoints, SubMap
 from glim_tpu_torch.utils.config import GlobalConfig, create_default_config_dir
 from glim_tpu_torch.utils.data_validator import DataValidator
 from glim_tpu_torch.utils.logging import create_module_logger
+from glim_tpu_torch.utils.profiling import profile_scope, report
 from glim_tpu_torch.utils.time_keeper import PerPointTimeSettings, TimeKeeper
 from glim_tpu_torch.utils.trajectory_manager import TrajectoryManager
 
@@ -46,13 +58,15 @@ class GlimTorch:
     consistent set of submaps out."""
 
     def __init__(self, config_path: Optional[str] = None,
-                 async_mode: bool = False, device="cuda",
-                 overrides: Optional[List[tuple]] = None):
+                 async_mode: bool = True,
+                 extension_modules: Optional[List[str]] = None,
+                 overrides: Optional[List[tuple]] = None, device="cuda"):
         """``overrides`` is a list of (logical_config, module, name, value)
         applied after loading and before module construction."""
-        if async_mode:
-            raise NotImplementedError("glim_tpu_torch runs the synchronous "
-                                      "pipeline only (async_mode=False)")
+        if extension_modules:
+            raise NotImplementedError(
+                f"extension modules {list(extension_modules)} need glim_tpu/ext/, which is "
+                "not ported to glim_tpu_torch yet")
         self.device = torch.device(device)
         if self.device.type != "cpu" and not torch.cuda.is_available():
             raise RuntimeError(f"GlimTorch: device {self.device} requested but no CUDA device "
@@ -78,19 +92,31 @@ class GlimTorch:
         self.keep_raw_points = bool(ros_cfg.param("glim_ros", "keep_raw_points", False))
 
         odo_cfg = self.config.get_config("config_odometry")
-        self.odometry = OdometryEstimationBase.load_module(
+        odometry = OdometryEstimationBase.load_module(
             odo_cfg.param("odometry_estimation", "so_name", "libodometry_estimation_cpu.so"),
             odo_cfg, sensors_config=sensors, device=self.device)
         sub_cfg = self.config.get_config("config_sub_mapping")
-        self.sub_mapping = SubMappingBase.load_module(
+        sub = SubMappingBase.load_module(
             sub_cfg.param("sub_mapping", "so_name", "libsub_mapping.so"), sub_cfg,
             device=self.device)
         glb_cfg = self.config.get_config("config_global_mapping")
-        self.global_mapping = GlobalMappingBase.load_module(
+        glb = GlobalMappingBase.load_module(
             glb_cfg.param("global_mapping", "so_name", "libglobal_mapping_pose_graph.so"),
             glb_cfg, device=self.device)
+
+        self.async_mode = async_mode
+        if async_mode:
+            self.odometry = AsyncOdometryEstimation(odometry)
+            self.sub_mapping = AsyncSubMapping(sub)
+            self.global_mapping = AsyncGlobalMapping(glb)
+        else:
+            self.odometry = odometry
+            self.sub_mapping = sub
+            self.global_mapping = glb
         self._sync_estimates: List[EstimationFrame] = []
-        # The odom -> world anchor follows the globally corrected submaps.
+        # The odom -> world anchor follows the globally corrected submaps
+        # (fired on the global-mapping worker in async mode; the trajectory
+        # manager locks).
         GlobalMappingCallbacks.on_update_submaps.add(self._on_update_submaps_anchor)
 
     def _on_update_submaps_anchor(self, submaps: List[SubMap]) -> None:
@@ -115,40 +141,104 @@ class GlimTorch:
         if not self.time_keeper.process(raw):
             logger.warning("dropping scan at %.6f", raw.stamp)
             return
-        with record_function("preprocess"):
+        with profile_scope("preprocess"):
             frame = self.preprocessor.preprocess(raw)
         if not self.keep_raw_points:
             frame.raw_points = None
+        if self.async_mode:
+            self.odometry.insert_frame(frame)
+            self._guarded(self._pump)
+            return
         marginalized: List[EstimationFrame] = []
-        with record_function("odometry"):
+        with profile_scope("odometry"):
             est = self.odometry.insert_frame(frame, marginalized)
         if est is not None:
-            self._sync_estimates.append(est)
-            self.trajectory.add_odom(est.stamp, est.T_world_sensor())
-        with record_function("sub_mapping"):
+            self._add_estimates([est])
+        with profile_scope("sub_mapping"):
             for m in marginalized:
                 # The state copy lands while sub-mapping dispatches its work.
                 m.fetch_state_async()
                 self.sub_mapping.insert_frame(m)
-        with record_function("global_mapping"):
+        with profile_scope("global_mapping"):
             for sm in self.sub_mapping.get_submaps():
                 self.global_mapping.insert_submap(sm)
 
+    def insert_image(self, stamp: float, image) -> None:
+        """Forward a camera frame to every stage's image callbacks."""
+        self.odometry.insert_image(stamp, image)
+        self.sub_mapping.insert_image(stamp, image)
+        self.global_mapping.insert_image(stamp, image)
+
+    def _add_estimates(self, ests: List[EstimationFrame]) -> None:
+        for e in ests:
+            self._sync_estimates.append(e)
+            self.trajectory.add_odom(e.stamp, e.T_world_sensor())
+
+    def _pump(self) -> None:
+        """Move results downstream: estimates to the trajectory, frames
+        marginalized by the odometry to sub-mapping, submaps to global
+        mapping."""
+        est, margs = self.odometry.get_results()
+        self._add_estimates(est)
+        for m in margs:
+            self.sub_mapping.insert_frame(m)
+        for sm in self.sub_mapping.get_results():
+            self.global_mapping.insert_submap(sm)
+
+    def _guarded(self, fn) -> None:
+        """Run ``fn``; if it raises (a stage's worker failed), stop every
+        worker before the exception propagates."""
+        try:
+            fn()
+        except BaseException:
+            for stage in (self.odometry, self.sub_mapping, self.global_mapping):
+                stage.stop()
+            raise
+
     # -- control --
+
+    def workload(self) -> int:
+        if not self.async_mode:
+            return 0
+        loads = []
+        self._guarded(lambda: loads.extend(
+            stage.workload() for stage in (self.odometry, self.sub_mapping,
+                                           self.global_mapping)))
+        return max(loads)
+
+    def ok(self) -> bool:
+        return True
 
     def wait(self) -> None:
         """Flush the pipeline (end of sequence): the frames still in the
         odometry window, with their final poses, go to sub-mapping, which
         closes its last submap; global mapping takes the remaining submaps
         without optimizing between them, then runs one final optimize."""
+        if self.async_mode:
+            self._guarded(self._drain)
+            return
         for m in self.odometry.get_remaining_frames():
             self.sub_mapping.insert_frame(m)
-        with record_function("global_mapping"):
+        with profile_scope("global_mapping"):
             self.global_mapping.defer_optimization = True
             for sm in self.sub_mapping.submit_end_of_sequence():
                 self.global_mapping.insert_submap(sm)
             self.global_mapping.defer_optimization = False
             self.global_mapping.optimize()
+
+    def _drain(self) -> None:
+        # Flag the drain downstream before the odometry join: submaps
+        # trickle into the global worker throughout the window flush, and
+        # each would otherwise pay an intermediate optimize that the final
+        # solve makes redundant.
+        self.sub_mapping.begin_drain()
+        self.global_mapping.begin_drain()
+        self.odometry.join()
+        self._pump()
+        self.sub_mapping.join()
+        for sm in self.sub_mapping.get_results():
+            self.global_mapping.insert_submap(sm)
+        self.global_mapping.join()
 
     # -- output --
 
@@ -157,8 +247,19 @@ class GlimTorch:
         return self._sync_estimates
 
     @property
+    def global_backend(self) -> GlobalMappingBase:
+        """The global-mapping module itself (inside its async wrapper)."""
+        return self.global_mapping.global_mapping if self.async_mode else self.global_mapping
+
+    @property
     def submaps(self) -> List[SubMap]:
-        return self.global_mapping.submaps
+        return self.global_backend.submaps
+
+    def save(self, path: str) -> None:
+        """Log the stage profile, then write the map dump to ``path``
+        (``io/dump.py`` layout)."""
+        report()
+        self.global_mapping.save(path)
 
     def export_points(self) -> np.ndarray:
         return self.global_mapping.export_points()

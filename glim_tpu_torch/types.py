@@ -60,7 +60,9 @@ class HostCopy:
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            # The copy is queued on the source device's current stream,
+            # whichever device is current on the calling thread.
+            self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._host = t
 
@@ -83,6 +85,33 @@ class PointBatch:
     intensities: Optional[torch.Tensor] = None  # (C,) f32
     covs: Optional[torch.Tensor] = None         # (C, 3, 3) f32
     normals: Optional[torch.Tensor] = None      # (C, 3) f32
+
+    @staticmethod
+    def from_numpy(points: np.ndarray, times: Optional[np.ndarray] = None,
+                   intensities: Optional[np.ndarray] = None,
+                   covs: Optional[np.ndarray] = None,
+                   normals: Optional[np.ndarray] = None,
+                   capacity: Optional[int] = None, *, device) -> "PointBatch":
+        """Host arrays of n points -> a batch on ``device`` padded to
+        ``capacity`` (default: the next power-of-two class), the first n
+        lanes valid; (N, 4) points keep their first three columns."""
+        pts = np.asarray(points, np.float32)
+        pts = pts.reshape(-1, pts.shape[-1])[:, :3]
+        n = pts.shape[0]
+        cap = capacity if capacity is not None else capacity_for(n)
+        if cap < n:
+            raise ValueError(f"capacity {cap} < n {n}")
+
+        def pad(a, tail, dtype=np.float32):
+            if a is None:
+                return None
+            out = np.zeros((cap,) + tail, dtype)
+            out[:n] = np.asarray(a, dtype).reshape((n,) + tail)
+            return upload(out, device)
+
+        return PointBatch(points=pad(pts, (3,)), mask=pad(np.ones(n, bool), (), bool),
+                          times=pad(times, ()), intensities=pad(intensities, ()),
+                          covs=pad(covs, (3, 3)), normals=pad(normals, (3,)))
 
 
 @dataclass

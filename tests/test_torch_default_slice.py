@@ -73,7 +73,8 @@ def test_default_config_matches_glim_tpu(tmp_path):
     ests_j, gt_j = _drive(glim_j, seq_j)
     ate_jax = j_ate([e.T_world_lidar for e in ests_j], gt_j, align=True)
 
-    glim_t = GlimTorch(t_create(str(tmp_path / "torch")), device="cpu", overrides=OVERRIDES)
+    glim_t = GlimTorch(t_create(str(tmp_path / "torch")), async_mode=False, device="cpu",
+                       overrides=OVERRIDES)
     assert type(glim_t.odometry).__name__ == "OdometryEstimationIMU"
     assert type(glim_t.sub_mapping).__name__ == "SubMapping"
     assert type(glim_t.global_mapping).__name__ == "GlobalMapping"

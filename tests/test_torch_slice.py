@@ -31,7 +31,9 @@ PRE = dict(random_downsample_target=1200, downsample_resolution=0.4)
 def _port_env():
     torch.set_num_threads(1)
     yield
+    from glim_tpu_torch.utils import lifecycle
     from glim_tpu_torch.utils.callbacks import CallbackSlot
+    lifecycle.stop_all()
     CallbackSlot.clear_all()
 
 
@@ -109,7 +111,8 @@ def test_glim_torch_matches_glim_tpu(tmp_path):
     ate_jax = j_ate([e.T_world_lidar for e in ests_j], gt_j, align=True)
 
     launches = nn_search.kernel_launches
-    glim_t = GlimTorch(_config_dir(t_create, tmp_path / "torch"), device="cpu")
+    glim_t = GlimTorch(_config_dir(t_create, tmp_path / "torch"), async_mode=False,
+                       device="cpu")
     ests_t, gt_t = _drive(glim_t, seq_t)
     ate_torch = t_ate([e.T_world_lidar for e in ests_t], gt_t, align=True)
 
@@ -125,7 +128,13 @@ def test_import_isolation():
     code = ("import sys, glim_tpu_torch, glim_tpu_torch.pipeline, glim_tpu_torch.state, "
             "glim_tpu_torch.odometry.keyframe_manager, glim_tpu_torch.mapping.sub_mapping, "
             "glim_tpu_torch.mapping.global_mapping, glim_tpu_torch.tools.backend_stress, "
-            "glim_tpu_torch.common.imu_integration, chip_smoke; "
+            "glim_tpu_torch.common.imu_integration, glim_tpu_torch.utils.concurrent, "
+            "glim_tpu_torch.utils.lifecycle, glim_tpu_torch.utils.profiling, "
+            "glim_tpu_torch.utils.debug, glim_tpu_torch.odometry.async_odometry_estimation, "
+            "glim_tpu_torch.mapping.async_sub_mapping, "
+            "glim_tpu_torch.mapping.async_global_mapping, glim_tpu_torch.io.dump, "
+            "glim_tpu_torch.io.boost_archive, glim_tpu_torch.io.gtsam_points_io, "
+            "glim_tpu_torch.io.loaders, glim_tpu_torch.tools.glim_runner, chip_smoke; "
             "from glim_tpu_torch.utils.registry import available_modules; "
             "assert 'odometry_estimation_gpu' in available_modules('odometry'); "
             "assert 'sub_mapping' in available_modules('sub_mapping'); "
@@ -202,10 +211,13 @@ def test_unported_configurations_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="VGICP"):
         OdometryEstimationCPUIMU(OdometryEstimationCPUIMUParams(registration_type="VGICP"),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="async"):
-        GlimTorch(cfg, async_mode=True, device="cpu")
     glim = GlimTorch(cfg, device="cpu")        # the default configuration builds
-    assert type(glim.global_mapping).__name__ == "GlobalMapping"
+    assert [type(s).__name__ for s in (glim.odometry, glim.sub_mapping, glim.global_mapping)] \
+        == ["AsyncOdometryEstimation", "AsyncSubMapping", "AsyncGlobalMapping"]
+    assert type(glim.global_backend).__name__ == "GlobalMapping"
+    glim.wait()
+    sync = GlimTorch(cfg, async_mode=False, device="cpu")
+    assert type(sync.global_mapping).__name__ == "GlobalMapping"
 
 
 def test_entry_points_default_to_cuda(tmp_path):

@@ -18,6 +18,17 @@ from glim_tpu.ops.imu import PreintegratedImu as JPreint
 
 POSE_ATOL = 1e-4
 
+# The default configuration cut to the CPU tests' size: a 6-state window,
+# small voxel maps, 1000 points a scan, 4 keyframes a submap.
+SMALL_DEFAULT_OVERRIDES = [
+    ("config_odometry", "odometry_estimation", "window_size", 6),
+    ("config_odometry", "odometry_estimation", "voxel_capacity", 16384),
+    ("config_odometry", "odometry_estimation", "initialization_window_size", 0.3),
+    ("config_preprocess", "preprocess", "random_downsample_target", 1000),
+    ("config_preprocess", "preprocess", "downsample_resolution", 0.4),
+    ("config_sub_mapping", "sub_mapping", "max_num_keyframes", 4),
+]
+
 
 def np_state(obj):
     """Dataclass (either package) -> nested dict of numpy arrays."""
