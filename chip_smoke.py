@@ -3,20 +3,22 @@
     python3 chip_smoke.py                   # the smoke run below
     python3 chip_smoke.py --nn-v1 SRC       # ... with phase 3's A/B against SRC
     python3 chip_smoke.py --profile [DIR]   # profiles of three configurations
+    python3 chip_smoke.py --eval [OUT]      # the port's full run_eval to OUT
 
 Phases (any failure exits non-zero):
   1. print the card (name and power limit as nvidia-smi reports them) and
      the software versions;
   2. build the nn_search CUDA kernel from glim_tpu_torch/csrc and hold it
      against its plain PyTorch version at the main path's shapes (16384 and
-     4096 queries against 131072 targets, ~30% masked; and the global
+     4096 queries against 131072 targets, ~30% masked; the global
      back-end's between refinement, 4096 queries against 4096 targets of
-     merged submap clouds, ~5% masked), a ragged case, the duplicate-target
-     cases (the lowest index must win: across the split boundary that the
-     launch geometry picks at Q=16384 and at Q=N=4096, and inside one
-     thread's register-tiled query rows) and a Q=4096 set with one valid
-     target;
-  3. time kernel and plain version at the three main-path shapes with CUDA
+     merged submap clouds, ~5% masked; and CT's iVox model, 16384 queries
+     against its 65536-point model, ~30% masked), a ragged case, the
+     duplicate-target cases (the lowest index must win: across the split
+     boundary that the launch geometry picks at Q=16384 against 131072 and
+     65536 targets and at Q=N=4096, and inside one thread's register-tiled
+     query rows) and a Q=4096 set with one valid target;
+  3. time kernel and plain version at the four shapes with CUDA
      events, in turns (plain, kernel, kernel, plain), each beside its bound
      (valid pairs x 8 flops over the FP32 peak; bytes over the memory rate)
      and its share of it, then the host time to enqueue a call (and, at
@@ -71,7 +73,26 @@ Phases (any failure exits non-zero):
      then the GICP slice asynchronously for 60 scans, whose nn_search
      launches (from the odometry and the global worker threads) must equal
      5 x window steps + 6 x between refinements;
-  7. print the kernel summary JSON and, last, the device JSON.
+  7. the shipped configurations the port gained, each through GlimTorch on
+     phase 5's sequence (150 scans of 65,536 points, 200 Hz IMU) with the
+     default sub-mapping and global mapping unless named: (a)
+     config_odometry_ct.json unedited (the vgicp model, no hand kernel),
+     (b) the same with model_type ivox, (c) config_odometry_cpu.json with
+     registration_type VGICP, (d) config_odometry_cpu.json with enable_imu
+     false (LiDAR-only GICP), (e) the default configuration with
+     config_sub_mapping_passthrough.json; each checks finite poses, its
+     module's JAX ATE bound (CT 0.2 m, VGICP LiDAR-IMU 0.12 m, LiDAR-only
+     0.15 m, the default odometry 0.08 m), submaps that hold every frame
+     that reached sub-mapping (pass-through: its keyframes past the
+     displacement gate), an optimize, the submap-origin ATE under 0.08 m
+     and the exact nn_search launch count (expected_launches: 4 a step and
+     a replayed bootstrap step for (b) and (d), none for the others, plus 6
+     a between refinement), and prints scans/s, ATE, launches and peak
+     memory;
+  8. the port's run_eval (glim_tpu_torch/tools/run_eval.py) on
+     figure8_room at its full 20 s (200 raycast scans, the flagship row):
+     the odometry ATE within 10% (or 2 mm) of EVAL.md's 0.0138 m;
+  9. print the kernel summary JSON and, last, the device JSON.
 
 ``--profile`` runs phase 5's configuration for 100 scans: host-clock time
 over scans 60-79 (the 48-state window is full and sub-mapping busy from
@@ -85,8 +106,13 @@ syncs per insert and per optimize) and phase 6's async pipeline
 (DIR/profile_async.txt: the spans the profiler records from the worker
 threads, and the device's busy share).
 
-``run_slice``, ``run_default``, ``run_ring`` and ``run_async_default`` are
-importable and run on any device (the CPU tests rehearse them at a tiny size); ``main`` requires
+``--eval [OUT]`` runs the port's full run_eval (the five sequences,
+city_loop at 47 s, the registry matrix and the window study) on the card
+and writes it to OUT (default build/EVAL_TORCH.md); it is not part of the
+default smoke.
+
+``run_slice``, ``run_default``, ``run_ring``, ``run_async_default`` and
+``run_shipped`` are importable and run on any device (the CPU tests rehearse them at a tiny size); ``main`` requires
 a CUDA device.
 """
 
@@ -203,7 +229,7 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
         del gm._gicp_refine_between
 
     ests = glim.odometry_estimates
-    window = _odometry(glim).window
+    window = getattr(_odometry(glim), "window", None)
     poses = [e.T_world_lidar for e in ests]
     gt = [seq.gt_poses[int(round(e.stamp * 10.0))] for e in ests]
     subs = glim.submaps
@@ -592,6 +618,160 @@ def _print_async(res: dict, sync: dict, card: str) -> None:
           f"{res['merged_optimizes']} optimize; dataset {res['dataset_mib']:.1f} MiB")
 
 
+# Phase 7: the shipped configurations besides the default, through GlimTorch
+# on phase 5's sequence: name -> (config edits, odometry ATE bound in m, the
+# JAX test that sets the bound).
+CT_ATE_BOUND = 0.2            # tests/test_odometry_ct.py
+LIDAR_ONLY_ATE_BOUND = 0.15   # tests/test_odometry_e2e.py
+SHIPPED_SCANS = 100          # not 150: the host sets the pace, and 1.3-2.1x spreads (PERF.md) must fit 1200 s
+_CT = [("config", "global", "config_odometry", "config_odometry_ct.json")]
+_CPU = [("config", "global", "config_odometry", "config_odometry_cpu.json")]
+SHIPPED = {
+    "ct": (_CT, CT_ATE_BOUND),
+    "ct_ivox": (_CT + [("config_odometry", "odometry_estimation", "model_type", "ivox")],
+                CT_ATE_BOUND),
+    "cpu_vgicp": (_CPU + [("config_odometry", "odometry_estimation", "registration_type",
+                           "VGICP")], ATE_BOUND),
+    "lidar_only": (_CPU + [("config_odometry", "odometry_estimation", "enable_imu", False)],
+                   LIDAR_ONLY_ATE_BOUND),
+    "passthrough": ([("config", "global", "config_sub_mapping",
+                      "config_sub_mapping_passthrough.json")], DEFAULT_ATE_BOUND),
+}
+# Phase 8: the port's run_eval on figure8_room against EVAL.md's flagship row.
+EVAL_FIGURE8_ATE = 0.0138     # m
+EVAL_REL, EVAL_ABS = 0.10, 0.002
+
+
+def expected_launches(odom, between_refinements: int) -> int:
+    """nn_search launches of a run: n_outer a step for CT with the ivox
+    model and for the LiDAR-only GICP odometry (their steps and the
+    bootstrap replay's), none for the VGICP paths, and 6 a between
+    refinement of the global back-end."""
+    from glim_tpu_torch.odometry.odometry_estimation_cpu import OdometryEstimationCPU
+    from glim_tpu_torch.odometry.odometry_estimation_ct import OdometryEstimationCT
+
+    p = odom.params
+    per_step = 0
+    if isinstance(odom, OdometryEstimationCT) and odom.model_kind == "ivox":
+        per_step = max(1, p.lm_max_iterations // 2) + (4 if p.rigid_refine else 0)
+    elif isinstance(odom, OdometryEstimationCPU) and not odom.use_vgicp:
+        per_step = max(1, p.max_iterations // 2)
+    steps = 0
+    if per_step:
+        if p.bootstrap_refine not in ("replay", "off"):
+            raise ValueError(f"no launch count for bootstrap_refine {p.bootstrap_refine!r}")
+        replayed = (p.bootstrap_frames if p.bootstrap_refine == "replay"
+                    and p.bootstrap_frames >= 2 and odom.frame_count > p.bootstrap_frames
+                    else 0)
+        steps = odom.frame_count + replayed
+    return per_step * steps + 6 * between_refinements
+
+
+def run_shipped(device, name, n_scans: int = SHIPPED_SCANS, n_scan_points: int = 65536,
+                scene_points: int = 400000, seed: int = 0, overrides=None) -> dict:
+    """Phase 7: GlimTorch (sync) on the default config directory with the
+    edits of SHIPPED[name] written into its files (and ``overrides``, the
+    CPU rehearsal's sizes), over phase 5's sequence; returns the run's
+    metrics, with the nn_search launches the run should make."""
+    from glim_tpu_torch.mapping.callbacks import SubMappingCallbacks
+    from glim_tpu_torch.pipeline import GlimTorch
+
+    edits, bound = SHIPPED[name]
+    _release_pipelines()
+    dev = torch.device(device)
+    seq = _sequence(n_scans, n_scan_points, scene_points, seed)
+    glim = GlimTorch(config_dir(edits, f"glim_smoke_{name}_"), async_mode=False,
+                     device=dev, overrides=overrides)
+    to_sub = []
+    SubMappingCallbacks.on_insert_frame.add(lambda f: to_sub.append(f.id))
+    res = _timed_run(glim, seq, dev)
+    odom, sub = glim.odometry, glim.sub_mapping
+    subs = glim.submaps
+    passthrough = type(sub).__name__ == "SubMappingPassthrough"
+    keyframe_gaps = []
+    if passthrough:
+        p = sub.params
+        from glim_tpu_torch.ops.lie_np import se3_log
+        for s in subs:
+            for a, b in zip(s.frames, s.frames[1:]):
+                d = se3_log(np.linalg.inv(a.T_world_sensor()) @ b.T_world_sensor())
+                keyframe_gaps.append(bool(np.linalg.norm(d[3:]) >= p.keyframe_update_interval_trans
+                                          or np.linalg.norm(d[:3])
+                                          >= p.keyframe_update_interval_rot))
+    res.update(
+        name=name, ate_bound=bound, odometry=type(odom).__name__,
+        sub_mapping=type(sub).__name__, steps=getattr(odom, "frame_count", None),
+        expected_launches=expected_launches(odom, res["between_refinements"]),
+        frames_per_submap=[len(s.frames) for s in subs],
+        # Every frame that reached sub-mapping lies in a submap: the default
+        # sub-mapping keeps them all in frames, pass-through in odom_frames
+        # (frames are its keyframes, each past the displacement gate).
+        submap_frames_total=sum(len(s.odom_frames if passthrough else s.frames) for s in subs),
+        frames_to_sub_mapping=len(to_sub), keyframes_past_the_gate=all(keyframe_gaps))
+    return res
+
+
+def check_shipped(res: dict) -> None:
+    """Phase 7's failure conditions: finite poses, the module's ATE bound,
+    submaps holding every frame that reached sub-mapping (pass-through: its
+    keyframes past the displacement gate), an optimize, the submap-origin
+    ATE bound and, on the card, the exact nn_search launch count."""
+    name = res["name"]
+    if not (res["poses_finite"] and res["submap_origins_finite"]):
+        raise AssertionError(f"{name}: non-finite poses")
+    if not res["ate"] < res["ate_bound"]:
+        raise AssertionError(f"{name}: ATE {res['ate']:.4f} m >= {res['ate_bound']} m")
+    if res["submaps"] < 2 or res["submap_frames_total"] != res["frames_to_sub_mapping"] \
+            or not res["keyframes_past_the_gate"]:
+        raise AssertionError(f"{name}: {res['submaps']} submaps holding "
+                             f"{res['submap_frames_total']} frames, "
+                             f"{res['frames_to_sub_mapping']} reached sub-mapping "
+                             f"(keyframe gate kept: {res['keyframes_past_the_gate']})")
+    if res["optimizes"] < 1:
+        raise AssertionError(f"{name}: global mapping never optimized")
+    if res["submap_ate"] is None or not res["submap_ate"] < SUBMAP_ATE_BOUND:
+        raise AssertionError(f"{name}: submap-origin ATE {res['submap_ate']} m for "
+                             f"{res['submaps']} submaps, want under {SUBMAP_ATE_BOUND} m")
+    on_card = res["max_memory_allocated"] is not None
+    if on_card and res["kernel_launches"] != res["expected_launches"]:
+        raise AssertionError(f"{name}: {res['kernel_launches']} nn_search launches, want "
+                             f"{res['expected_launches']} ({res['steps']} steps)")
+
+
+def _print_shipped(res: dict, card: str) -> None:
+    print(f"shipped {res['name']}: " + json.dumps(res))
+    mem = res["max_memory_allocated"]
+    print(f"shipped {res['name']} [{card}]: {res['odometry']} + {res['sub_mapping']}, "
+          f"{res['scans']} scans in {res['seconds']:.2f} s = {res['scans_per_s']:.4f} scans/s, "
+          f"ATE {res['ate']:.4f} m (bound {res['ate_bound']}), {res['kernel_launches']} "
+          f"nn_search launches (want {res['expected_launches']}), {res['submaps']} submaps, "
+          f"submap-origin ATE {res['submap_ate']} m, {res['optimizes']} optimizes, max memory "
+          + (f"{mem / 2**20:.1f} MiB" if mem is not None else "not measured"))
+
+
+def run_eval_figure8(device, duration: float = 20.0) -> dict:
+    """Phase 8: the port's run_eval flagship row on figure8_room (EVAL.md's
+    sequence, 20 s = 200 raycast scans)."""
+    from glim_tpu_torch.tools import run_eval
+
+    _release_pipelines()
+    t0 = time.perf_counter()
+    seq, _ = run_eval.make_sequence("figure8_room", duration)
+    gen_s = time.perf_counter() - t0
+    m, g, sps, extra = run_eval.run_sequence(seq, device=device)
+    return dict(scans=extra["n_scans"], ate=m.ate_rmse, rot_deg=m.rot_rmse_deg,
+                global_ate=g.ate_rmse if g else None, scans_per_s=sps,
+                submaps=extra["n_submaps"], generate_seconds=gen_s,
+                seconds=time.perf_counter() - t0)
+
+
+def check_eval_figure8(res: dict) -> None:
+    tol = max(EVAL_REL * EVAL_FIGURE8_ATE, EVAL_ABS)
+    if not abs(res["ate"] - EVAL_FIGURE8_ATE) <= tol:
+        raise AssertionError(f"run_eval figure8_room: ATE {res['ate']:.4f} m, EVAL.md "
+                             f"{EVAL_FIGURE8_ATE} m +- {tol} m")
+
+
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -702,6 +882,7 @@ def check_nn_search() -> float:
     for name, Q, N, masked in (("main Q=16384 N=131072", 16384, 131072, 0.3),
                                ("main Q=4096 N=131072", 4096, 131072, 0.3),
                                ("between refinement Q=N=4096", 4096, 4096, 0.05),
+                               ("CT iVox Q=16384 N=65536", 16384, 65536, 0.3),
                                ("ragged Q=1000 N=3001", 1000, 3001, 0.3)):
         max_err = max(max_err, _compare(name, *_nn_case(gen, Q, N, masked), search, plain))
 
@@ -725,8 +906,8 @@ def check_nn_search() -> float:
     # on a target has d2 = 0, where the plain version's cancellation error
     # (a few ulp of 2|t|^2) must stay under REL_TOL.
     # Both copies of 64 targets on either side of the middle split boundary,
-    # at the odometry's and at the between refinement's shape.
-    for Q, N, masked in ((16384, 131072, 0.3), (4096, 4096, 0.05)):
+    # at the odometry's, the between refinement's and CT iVox's shape.
+    for Q, N, masked in ((16384, 131072, 0.3), (4096, 4096, 0.05), (16384, 65536, 0.3)):
         _, splits, split_len = nn.launch_geometry(Q, N, nn._sm_count(0))
         b = split_len * (splits // 2)
         q, qm, t, tm = _nn_case(gen, Q, N, masked)
@@ -810,7 +991,7 @@ def nn_bound_ms(q, qm, t, tm):
 
 # Phase 3's shapes: (Q, N, masked share of the targets, key suffix).
 NN_SHAPES = ((16384, 131072, 0.3, ""), (4096, 131072, 0.3, "_q4096"),
-             (4096, 4096, 0.05, "_q4096_n4096"))
+             (4096, 4096, 0.05, "_q4096_n4096"), (16384, 65536, 0.3, "_n65536"))
 
 
 def time_nn_search(card: str, v1_src=None) -> dict:
@@ -1291,6 +1472,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     args = sys.argv[1:]
+    if args[:1] == ["--eval"]:
+        from glim_tpu_torch.tools import run_eval
+        card = _card()
+        print(card)
+        out = args[1] if len(args) > 1 else os.path.join("build", "EVAL_TORCH.md")
+        run_eval.main(["--matrix", "--window-study", "--device", "cuda", "--out", out])
+        with open(out) as f:
+            print(f.read())
+        return 0
     if args[:1] == ["--profile"]:
         card = _card()
         print(card)
@@ -1358,7 +1548,22 @@ def main() -> int:
           f"between refinements, ATE {gres['ate']:.4f} m")
     check_slice(gres, "async GICP slice", min_window_steps=ASYNC_GICP_SCANS // 3)
 
-    # --- 7. summary ---
+    # --- 7. the shipped CT, frame-to-model and pass-through configurations ---
+    shipped = {}
+    for name in SHIPPED:
+        shipped[name] = run_shipped("cuda", name)
+        _print_shipped(shipped[name], card)
+        check_shipped(shipped[name])
+
+    # --- 8. the port's run_eval on figure8_room (EVAL.md's sequence) ---
+    fres = run_eval_figure8("cuda")
+    print("eval figure8_room: " + json.dumps(fres))
+    print(f"eval figure8_room [{card}]: {fres['scans']} raycast scans, ATE {fres['ate']:.4f} m "
+          f"(EVAL.md {EVAL_FIGURE8_ATE} m), global ATE {fres['global_ate']} m, "
+          f"{fres['scans_per_s']:.3f} scans/s after the warm-up, {fres['submaps']} submaps")
+    check_eval_figure8(fres)
+
+    # --- 9. summary ---
     print(json.dumps({"kernels": [{
         "name": "nn_search", "route": "cuda",
         "source": "glim_tpu_torch/csrc/nn_search.cu",
@@ -1367,6 +1572,8 @@ def main() -> int:
         "launches_between_refinement": res["between_launches"],
         "launches_default": dres["kernel_launches"], "launches_ring": ring_launches,
         "launches_async_gicp": gres["kernel_launches"],
+        "launches_ct_ivox": shipped["ct_ivox"]["kernel_launches"],
+        "launches_lidar_only": shipped["lidar_only"]["kernel_launches"],
         "max_abs_err": max_err, **timing}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

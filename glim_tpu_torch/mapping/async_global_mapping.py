@@ -8,6 +8,8 @@ slots (optimize, recover, find-overlapping, translation prior, loop,
 between), optimizes periodically when idle, and guards ``save`` /
 ``export_points`` with a mutex.
 
+A back-end's ``wait_for_detection()`` (the pose graph's loop detection)
+runs before the final solve and its ``stop()`` after it and in ``stop()``.
 A back-end with ``enable_optimization`` false is never optimized by the
 wrapper (the JAX wrapper's check ignores that parameter). Otherwise every
 optimize the wrapper decides on itself (after a burst, when idle, and the
@@ -88,10 +90,14 @@ class AsyncGlobalMapping:
         self.worker.join(timeout)
 
     def stop(self, timeout: float = 5.0) -> None:
-        """Non-draining shutdown (lifecycle cleanup)."""
+        """Non-draining shutdown (lifecycle cleanup); stops the back-end
+        too when it has a ``stop`` (the pose graph's detection thread)."""
         self._end_of_sequence.set()
         self.input_submap_queue.submit_end_of_data()
         self.worker.thread.join(timeout=timeout)
+        stop_inner = getattr(self.global_mapping, "stop", None)
+        if stop_inner is not None:
+            stop_inner()
 
     def workload(self) -> int:
         self.worker.check()
@@ -177,8 +183,13 @@ class AsyncGlobalMapping:
 
             if eos and self.input_submap_queue.empty() and not submaps:
                 with self._mutex, profile_scope("global_mapping"):
+                    # Let a back-end's loop detection finish its queue first.
+                    if hasattr(gm, "wait_for_detection"):
+                        gm.wait_for_detection()
                     # Final solve, skipped when the graph is unchanged since
                     # the last optimize or optimization is disabled.
                     if self._needs_optimize():
-                        self.global_mapping.optimize()
+                        gm.optimize()
+                    if hasattr(gm, "stop"):
+                        gm.stop()
                 break

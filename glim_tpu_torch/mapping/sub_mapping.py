@@ -210,8 +210,9 @@ class SubMapping(SubMappingBase):
                 "which is not ported to glim_tpu_torch yet")
         if p.create_between_factors:
             raise NotImplementedError(
-                "sub_mapping: create_between_factors: true needs "
-                "gicp.gicp_linearize, which is not ported to glim_tpu_torch yet")
+                "sub_mapping: create_between_factors: true needs the GICP between "
+                "information (_between_info_gicp) and submap_refine, which are not "
+                "ported to glim_tpu_torch yet")
         self.device = torch.device(device)
         self.submap_count = 0
         self._delayed: List[EstimationFrame] = []

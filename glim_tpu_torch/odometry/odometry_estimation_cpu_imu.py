@@ -1,16 +1,18 @@
-"""IMU-coupled frame-to-model odometry (cpu-module parity), GICP mode.
+"""IMU-coupled frame-to-model odometry (cpu-module parity).
 
 Twin of ``glim_tpu/odometry/odometry_estimation_cpu_imu.py``: the shared
-window estimator fuses a frame-to-model GICP matching system for the newest
-state with the IMU chain in one joint Gauss-Newton, against a bounded
-iVox-style point map (nearest-neighbour correspondences through the
-``nn_search`` CUDA kernel, capped at 2 x ivox_resolution). The model absorbs
-every scan: full density for the first ``dense_frames`` frames, then a
-``target_downsampling_rate`` random sample drawn from the module's own
-``torch.Generator``.
+window estimator fuses a frame-to-model matching system for the newest
+state with the IMU chain in one joint Gauss-Newton. The model is a bounded
+iVox-style point map in GICP mode (nearest-neighbour correspondences through
+the ``nn_search`` CUDA kernel, capped at 2 x ivox_resolution) or
+``vgicp_voxelmap_levels`` Gaussian voxel maps in VGICP mode (resolution
+``vgicp_resolution * scaling^level``, matched by ``window_scan_step`` with
+``matching="vgicp"``). The model absorbs every scan: full density for the
+first ``dense_frames`` frames, then a ``target_downsampling_rate`` random
+sample drawn from the module's own ``torch.Generator``.
 
-Only ``registration_type: GICP`` is ported; VGICP raises until the Gaussian
-voxel-map slice lands.
+``enable_imu: false`` selects the LiDAR-only module of
+``odometry_estimation_cpu.py``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from glim_tpu_torch.utils.registry import register_module
 
 @dataclass
 class OdometryEstimationCPUIMUParams(OdometryEstimationIMUParams):
-    registration_type: str = "GICP"        # GICP (iVox); VGICP not ported yet
+    registration_type: str = "GICP"        # GICP (iVox) | VGICP
     max_iterations: int = 8
     target_downsampling_rate: float = 0.1
     ivox_resolution: float = 0.5
@@ -62,12 +64,9 @@ class OdometryEstimationCPUIMU(OdometryEstimationIMU):
                  device="cuda"):
         self._cpu_params = params or OdometryEstimationCPUIMUParams()
         p = self._cpu_params
-        if p.registration_type.upper().startswith("VGICP"):
-            raise NotImplementedError(
-                "odometry_estimation_cpu: registration_type VGICP is not ported "
-                "yet; glim_tpu_torch runs registration_type GICP")
         super().__init__(p, device=device)
-        self._matching = "gicp"
+        self.use_vgicp = p.registration_type.upper().startswith("VGICP")
+        self._matching = "vgicp" if self.use_vgicp else "gicp"
         self._max_corr_dist = p.ivox_resolution * 2.0
         self._d_max_corr_dist = self._f32(self._max_corr_dist)
         self._gen = torch.Generator(device=self.device)
@@ -80,6 +79,13 @@ class OdometryEstimationCPUIMU(OdometryEstimationIMU):
 
     def _make_model(self):
         p = self._cpu_params
+        if p.registration_type.upper().startswith("VGICP"):
+            return tuple(
+                vmx.empty_gaussian_voxelmap(
+                    max(p.model_capacity >> lvl, 8192),
+                    p.vgicp_resolution * (p.vgicp_voxelmap_scaling_factor ** lvl),
+                    device=self.device)
+                for lvl in range(max(p.vgicp_voxelmap_levels, 1)))
         return vmx.empty_point_voxelmap(p.model_capacity, p.ivox_min_dist,
                                         device=self.device)
 
@@ -105,17 +111,22 @@ class OdometryEstimationCPUIMU(OdometryEstimationIMU):
             keep = torch.rand(mask.shape, generator=self._gen,
                               device=self.device) < p.target_downsampling_rate
             mask = mask & keep
-        self.model = vmx.pointmap_insert(self.model, pts_w, mask, covs_w, frame_id)
+        if self.use_vgicp:
+            self.model = tuple(vmx.voxelmap_insert(vm, pts_w, mask, covs_w, frame_id)
+                               for vm in self.model)
+        else:
+            self.model = vmx.pointmap_insert(self.model, pts_w, mask, covs_w, frame_id)
 
 
 @register_module("odometry", "odometry_estimation_cpu")
 def create_odometry_estimation_cpu_module(config=None, sensors_config=None, device="cuda"):
-    """libodometry_estimation_cpu.so: the IMU-coupled frame-to-model module.
-    Its LiDAR-only fallback (enable_imu=false) is not ported yet."""
+    """libodometry_estimation_cpu.so: the IMU-coupled frame-to-model module;
+    enable_imu=false selects the LiDAR-only module."""
     if config is not None and not config.param("odometry_estimation", "enable_imu", True):
-        raise NotImplementedError(
-            "odometry_estimation_cpu with enable_imu=false (LiDAR-only) is not "
-            "ported yet; glim_tpu_torch runs the LiDAR-IMU module")
+        from glim_tpu_torch.odometry.odometry_estimation_cpu import (
+            OdometryEstimationCPU, OdometryEstimationCPUParams)
+        return OdometryEstimationCPU(OdometryEstimationCPUParams.from_config(config),
+                                     device=device)
     params = (OdometryEstimationCPUIMUParams.from_config(config, sensors_config)
               if config is not None else OdometryEstimationCPUIMUParams())
     return OdometryEstimationCPUIMU(params, device=device)

@@ -493,6 +493,7 @@ class OdometryEstimationIMU(OdometryEstimationBase):
                 from glim_tpu_torch.odometry.odometry_estimation_cpu import (
                     OdometryEstimationCPU, OdometryEstimationCPUParams)
                 self._init_odom = OdometryEstimationCPU(OdometryEstimationCPUParams(
+                    registration_type="VGICP",
                     vgicp_resolution=max(p.voxel_resolution * 2, 0.5),
                     voxel_capacity=min(p.voxel_capacity, 65536)), device=self.device)
                 self._init_poses = []

@@ -78,6 +78,14 @@ def _soa_inv_sym(s: torch.Tensor) -> torch.Tensor:
     return torch.stack([c00, c01, c02, c11, c12, c22]) * inv_det
 
 
+def inv_sym3x3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of batched symmetric 3x3 (..., 3, 3): the
+    adjugate over the determinant (a determinant under 1e-20 counts as 1)."""
+    packed = torch.stack([A[..., 0, 0], A[..., 0, 1], A[..., 0, 2],
+                          A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]])
+    return _soa_unpack(_soa_inv_sym(packed)).movedim((0, 1), (-2, -1))
+
+
 def _skew_cols(v: torch.Tensor) -> torch.Tensor:
     """Columns of skew(v) for v (3, C) -> (3 cols, 3, C)."""
     zero = torch.zeros_like(v[0])

@@ -198,6 +198,19 @@ def randomgrid_sampling(points: torch.Tensor, mask: torch.Tensor, resolution,
     return pts_s[trim_order], kept_mask, order[trim_order]
 
 
+def random_sampling(points: torch.Tensor, mask: torch.Tensor, target: int,
+                    prio: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Uniform random sampling of up to ``target`` valid points: the valid
+    points first, in ``prio`` order ((C,) uniform draws), then the invalid
+    ones; the first min(n_valid, target) lanes are valid.
+
+    Returns (points, mask, src_idx)."""
+    C = points.shape[0]
+    order = lexsort((prio, ~mask))
+    out_mask = torch.arange(C, device=points.device) < torch.clamp(mask.sum(), max=target)
+    return points[order], out_mask, order
+
+
 def distance_filter(points: torch.Tensor, mask: torch.Tensor, near, far) -> torch.Tensor:
     """Mask update: keep finite points with near <= |p| <= far."""
     d = torch.linalg.norm(points, dim=-1)

@@ -213,18 +213,27 @@ class GlimTorch:
         """Flush the pipeline (end of sequence): the frames still in the
         odometry window, with their final poses, go to sub-mapping, which
         closes its last submap; global mapping takes the remaining submaps
-        without optimizing between them, then runs one final optimize."""
+        without optimizing between them, then runs one final optimize
+        (none when its ``enable_optimization`` is false). A back-end with
+        ``wait_for_detection`` / ``stop`` has its detection finished before
+        that solve and stopped after it, as in async mode."""
         if self.async_mode:
             self._guarded(self._drain)
             return
         for m in self.odometry.get_remaining_frames():
             self.sub_mapping.insert_frame(m)
+        gm = self.global_mapping
         with profile_scope("global_mapping"):
-            self.global_mapping.defer_optimization = True
+            gm.defer_optimization = True
             for sm in self.sub_mapping.submit_end_of_sequence():
-                self.global_mapping.insert_submap(sm)
-            self.global_mapping.defer_optimization = False
-            self.global_mapping.optimize()
+                gm.insert_submap(sm)
+            gm.defer_optimization = False
+            if hasattr(gm, "wait_for_detection"):
+                gm.wait_for_detection()
+            if getattr(getattr(gm, "params", None), "enable_optimization", True):
+                gm.optimize()
+            if hasattr(gm, "stop"):
+                gm.stop()
 
     def _drain(self) -> None:
         # Flag the drain downstream before the odometry join: submaps

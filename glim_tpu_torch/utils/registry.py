@@ -64,8 +64,11 @@ def _ensure_builtins_imported(kind: str) -> None:
     # Lazy import of the built-in implementations so registry lookups work
     # without the caller importing every pipeline module.
     mods = {"odometry": ["glim_tpu_torch.odometry.odometry_estimation_imu",
-                         "glim_tpu_torch.odometry.odometry_estimation_cpu_imu"],
-            "sub_mapping": ["glim_tpu_torch.mapping.sub_mapping"],
+                         "glim_tpu_torch.odometry.odometry_estimation_cpu_imu",
+                         "glim_tpu_torch.odometry.odometry_estimation_cpu",
+                         "glim_tpu_torch.odometry.odometry_estimation_ct"],
+            "sub_mapping": ["glim_tpu_torch.mapping.sub_mapping",
+                            "glim_tpu_torch.mapping.sub_mapping_passthrough"],
             "global_mapping": ["glim_tpu_torch.mapping.global_mapping"]}
     for m in mods.get(kind, []):
         importlib.import_module(m)

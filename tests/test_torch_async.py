@@ -8,8 +8,9 @@ two runs take the same decisions: gate copies are always ready). A stage
 that raises makes ``workload()`` / ``wait()`` raise and stops the other
 workers; a back-end with ``enable_optimization`` false is never optimized
 by the wrapper (the JAX wrapper's check ignores it, so that path is not
-compared). Every join has a timeout and the test fails if a thread is
-still alive.
+compared), in either pipeline mode. A back-end's wait_for_detection() runs
+before the final solve and its stop() after it, in both modes. Every join
+has a timeout and the test fails if a thread is still alive.
 """
 
 import sys
@@ -259,13 +260,15 @@ def test_enable_optimization_false_never_optimizes(enable):
     assert (backend.optimizes == 0) if not enable else (backend.optimizes >= 3)
 
 
-def test_enable_optimization_false_in_the_pipeline(tmp_path):
-    """The async pipeline with enable_optimization false runs no optimize
-    and keeps the odometry's submap origins."""
+@pytest.mark.parametrize("async_mode", [True, False])
+def test_enable_optimization_false_in_the_pipeline(tmp_path, async_mode):
+    """The pipeline (async, and the sync wait()'s final solve) with
+    enable_optimization false runs no optimize and keeps the odometry's
+    submap origins."""
     from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks
 
-    glim = _glim(tmp_path, True, [("config_global_mapping", "global_mapping",
-                                   "enable_optimization", False)])
+    glim = _glim(tmp_path, async_mode, [("config_global_mapping", "global_mapping",
+                                         "enable_optimization", False)])
     optimizes = []
     GlobalMappingCallbacks.on_smoother_update_result.add(lambda *a: optimizes.append(1))
     _feed(glim, _seq(), n_scans=20)
@@ -274,6 +277,57 @@ def test_enable_optimization_false_in_the_pipeline(tmp_path):
     assert len(gm.submaps) >= 2 and optimizes == []
     for T, T0 in zip(gm.poses, gm.odom_poses):
         np.testing.assert_allclose(T, T0, atol=1e-9)
+
+
+class _HookedBackend(_Backend):
+    """A back-end with the pose graph's end-of-sequence hooks, recording
+    the order of its calls."""
+
+    def __init__(self):
+        super().__init__(True)
+        self.calls = []
+
+    def insert_submap(self, sm):
+        super().insert_submap(sm)
+        self.calls.append("insert")
+
+    def optimize(self):
+        super().optimize()
+        self.calls.append("optimize")
+
+    def wait_for_detection(self):
+        self.calls.append("wait_for_detection")
+
+    def stop(self):
+        self.calls.append("stop")
+
+
+@pytest.mark.parametrize("async_mode", [True, False])
+def test_backend_hooks_at_the_end_of_a_sequence(tmp_path, async_mode):
+    """wait() finishes the back-end's detection before the final solve and
+    stops it after, in both pipeline modes."""
+    glim = _glim(tmp_path, async_mode)
+    backend = _HookedBackend()
+    if async_mode:
+        glim.global_mapping.global_mapping = backend
+        glim.global_mapping.insert_submap("a")
+    else:
+        glim.global_mapping = backend
+        backend.insert_submap("a")
+    _wait(glim)
+    assert backend.calls == ["insert", "wait_for_detection", "optimize", "stop"]
+
+
+def test_async_stop_stops_the_backend():
+    """The async wrapper's non-draining stop() stops the back-end too."""
+    from glim_tpu_torch.mapping.async_global_mapping import AsyncGlobalMapping
+
+    backend = _HookedBackend()
+    agm = AsyncGlobalMapping(backend)
+    agm.stop()
+    assert not agm.worker.is_alive()
+    assert backend.calls[-1] == "stop" and "optimize" not in backend.calls[
+        backend.calls.index("stop") + 1:]
 
 
 @pytest.fixture

@@ -134,10 +134,18 @@ def test_import_isolation():
             "glim_tpu_torch.mapping.async_sub_mapping, "
             "glim_tpu_torch.mapping.async_global_mapping, glim_tpu_torch.io.dump, "
             "glim_tpu_torch.io.boost_archive, glim_tpu_torch.io.gtsam_points_io, "
-            "glim_tpu_torch.io.loaders, glim_tpu_torch.tools.glim_runner, chip_smoke; "
+            "glim_tpu_torch.io.loaders, glim_tpu_torch.tools.glim_runner, "
+            "glim_tpu_torch.odometry.odometry_estimation_ct, "
+            "glim_tpu_torch.odometry.odometry_estimation_cpu, "
+            "glim_tpu_torch.odometry.odometry_estimation_cpu_imu, "
+            "glim_tpu_torch.mapping.sub_mapping_passthrough, glim_tpu_torch.tools.run_eval, "
+            "glim_tpu_torch.tools.evaluate, chip_smoke; "
             "from glim_tpu_torch.utils.registry import available_modules; "
-            "assert 'odometry_estimation_gpu' in available_modules('odometry'); "
-            "assert 'sub_mapping' in available_modules('sub_mapping'); "
+            "assert {'odometry_estimation_gpu', 'odometry_estimation_cpu', "
+            "'odometry_estimation_ct', 'odometry_estimation_lidar_only'} "
+            "<= set(available_modules('odometry')); "
+            "assert {'sub_mapping', 'sub_mapping_passthrough'} "
+            "<= set(available_modules('sub_mapping')); "
             "assert 'global_mapping' in available_modules('global_mapping'); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'glim_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -176,18 +184,13 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_unported_configurations_raise(tmp_path):
-    """Each configuration the port lacks raises, naming itself."""
-    from glim_tpu_torch.odometry.odometry_estimation_cpu_imu import (
-        OdometryEstimationCPUIMU, OdometryEstimationCPUIMUParams)
+    """Each configuration the port lacks raises, naming itself; the shipped
+    CT, pass-through and frame-to-model configurations build."""
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.utils.config import create_default_config_dir
 
     cfg = create_default_config_dir(str(tmp_path / "default"))
     for logical, module, name, value, match in (
-            ("config", "global", "config_odometry", "config_odometry_ct.json",
-             "libodometry_estimation_ct.so"),
-            ("config", "global", "config_sub_mapping", "config_sub_mapping_passthrough.json",
-             "libsub_mapping_passthrough.so"),
             ("config", "global", "config_global_mapping", "config_global_mapping_pose_graph.json",
              "libglobal_mapping_pose_graph.so"),
             ("config_sub_mapping", "sub_mapping", "enable_optimization", True,
@@ -208,9 +211,20 @@ def test_unported_configurations_raise(tmp_path):
         data[module][name] = before
         with open(path, "w") as f:
             json.dump(data, f)
-    with pytest.raises(NotImplementedError, match="VGICP"):
-        OdometryEstimationCPUIMU(OdometryEstimationCPUIMUParams(registration_type="VGICP"),
-                                 device="cpu")
+    for overrides, names in (
+            ([("config", "global", "config_odometry", "config_odometry_ct.json")],
+             ("OdometryEstimationCT", "SubMapping")),
+            ([("config", "global", "config_sub_mapping", "config_sub_mapping_passthrough.json")],
+             ("OdometryEstimationIMU", "SubMappingPassthrough")),
+            ([("config", "global", "config_odometry", "config_odometry_cpu.json"),
+              ("config_odometry", "odometry_estimation", "registration_type", "VGICP")],
+             ("OdometryEstimationCPUIMU", "SubMapping")),
+            ([("config", "global", "config_odometry", "config_odometry_cpu.json"),
+              ("config_odometry", "odometry_estimation", "enable_imu", False)],
+             ("OdometryEstimationCPU", "SubMapping"))):
+        import chip_smoke
+        glim = GlimTorch(chip_smoke.config_dir(overrides), async_mode=False, device="cpu")
+        assert (type(glim.odometry).__name__, type(glim.sub_mapping).__name__) == names
     glim = GlimTorch(cfg, device="cpu")        # the default configuration builds
     assert [type(s).__name__ for s in (glim.odometry, glim.sub_mapping, glim.global_mapping)] \
         == ["AsyncOdometryEstimation", "AsyncSubMapping", "AsyncGlobalMapping"]
