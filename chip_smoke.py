@@ -9,16 +9,18 @@ Phases (any failure exits non-zero):
   1. print the card (name and power limit as nvidia-smi reports them) and
      the software versions;
   2. build the nn_search CUDA kernel from glim_tpu_torch/csrc and hold it
-     against its plain PyTorch version at the main path's shapes (16384 and
-     4096 queries against 131072 targets, ~30% masked; the global
-     back-end's between refinement, 4096 queries against 4096 targets of
-     merged submap clouds, ~5% masked; and CT's iVox model, 16384 queries
-     against its 65536-point model, ~30% masked), a ragged case, the
-     duplicate-target cases (the lowest index must win: across the split
-     boundary that the launch geometry picks at Q=16384 against 131072 and
-     65536 targets and at Q=N=4096, and inside one thread's register-tiled
-     query rows) and a Q=4096 set with one valid target;
-  3. time kernel and plain version at the four shapes with CUDA
+     against its plain PyTorch version at every caller's shape (NN_CHECKS:
+     16384 and 4096 queries against 131072 targets, ~30% masked; the
+     global back-end's between refinement, 4096 queries against 4096
+     targets of merged submap clouds, ~5% masked; CT's iVox model, 16384
+     queries against its 65536-point model, ~30% masked; sub-mapping's
+     between information, Q = N = 16384 with ~39% of each side masked; the
+     pose graph's inlier fraction, Q = N = 10923 with ~24% masked, and its
+     ring, Q = N = 2048), a ragged case, the duplicate-target cases (the
+     lowest index must win: across the split boundary that the launch
+     geometry picks at each caller's shape, and inside one thread's
+     register-tiled query rows) and a Q=4096 set with one valid target;
+  3. time kernel and plain version at the callers' seven shapes with CUDA
      events, in turns (plain, kernel, kernel, plain), each beside its bound
      (valid pairs x 8 flops over the FP32 peak; bytes over the memory rate)
      and its share of it, then the host time to enqueue a call (and, at
@@ -57,6 +59,11 @@ Phases (any failure exits non-zero):
      reaches; check the pre-closure ATE (1.9974 m +- 1e-3: the same numpy
      ring as the JAX tool's) and a post-closure ATE under 0.03 m, and print
      insert and optimize ms at the 16/32/64/128 checkpoints;
+  5d. the same ring through the port's GlobalMappingPoseGraph
+     (backend_stress.run_pose_graph: the loop-detection thread evaluating 4
+     candidates an insert, an optimize every 4): the pre-closure ATE as in
+     5c, a post-closure ATE no worse than 1.1 x the JAX record's 0.6493 m,
+     a loop, and nn_search launches equal to the registrations counted;
   6. the asynchronous pipeline through the port's offline runner: phase
      5's sequence written as a dataset directory (scans/, times/, imu.csv,
      stamps.csv) in a temporary directory, played by
@@ -92,7 +99,17 @@ Phases (any failure exits non-zero):
   8. the port's run_eval (glim_tpu_torch/tools/run_eval.py) on
      figure8_room at its full 20 s (200 raycast scans, the flagship row):
      the odometry ATE within 10% (or 2 mm) of EVAL.md's 0.0138 m;
-  9. print the kernel summary JSON and, last, the device JSON.
+  9. the pose-graph configuration through GlimTorch (sync): the default
+     configuration with config_global_mapping_pose_graph.json and
+     sub-mapping's enable_optimization and create_between_factors, 120
+     scans of 65,536 points on a 10 m circle at 0.6 rad/s (1.15 laps, 72 m
+     of travel); checks finite poses, the odometry and submap-origin ATE
+     bounds (0.08 m), every frame that reached sub-mapping in a submap, a
+     refinement of every submap with two keyframes, a loop, an optimize
+     and the exact nn_search count (one a between information, one a
+     registration), and prints scans/s, refinement ms and host syncs a
+     submap, loops and peak memory;
+  10. print the kernel summary JSON and, last, the device JSON.
 
 ``--profile`` runs phase 5's configuration for 100 scans: host-clock time
 over scans 60-79 (the 48-state window is full and sub-mapping busy from
@@ -107,13 +124,14 @@ syncs per insert and per optimize) and phase 6's async pipeline
 threads, and the device's busy share).
 
 ``--eval [OUT]`` runs the port's full run_eval (the five sequences,
-city_loop at 47 s, the registry matrix and the window study) on the card
-and writes it to OUT (default build/EVAL_TORCH.md); it is not part of the
-default smoke.
+city_loop at 47 s, the registry matrix with its pose-graph rows and the
+window study) on the card and writes it to OUT (default
+build/EVAL_TORCH.md); it is not part of the default smoke.
 
-``run_slice``, ``run_default``, ``run_ring``, ``run_async_default`` and
-``run_shipped`` are importable and run on any device (the CPU tests rehearse them at a tiny size); ``main`` requires
-a CUDA device.
+``run_slice``, ``run_default``, ``run_ring``, ``run_pose_graph_ring``,
+``run_async_default``, ``run_shipped`` and ``run_pose_graph_config`` are
+importable and run on any device (the CPU tests rehearse them at a tiny
+size); ``main`` requires a CUDA device.
 """
 
 from __future__ import annotations
@@ -197,7 +215,7 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
 
     gm = glim.global_backend
     counts = dict(optimizes=0, between_launches=0)
-    refine = gm._gicp_refine_between
+    refine = getattr(gm, "_gicp_refine_between", None)     # the matching back-end's
 
     def counted_refine(*args):
         n0 = nn_search.kernel_launches
@@ -210,7 +228,8 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
 
     # The async pipeline launches from two threads at once: a difference of
     # the shared count would mix them, so only the total is kept there.
-    if not glim.async_mode:
+    count_between = refine is not None and not glim.async_mode
+    if count_between:
         gm._gicp_refine_between = counted_refine
     handle = GlobalMappingCallbacks.on_smoother_update_result.add(on_result)
     if dev.type == "cuda":
@@ -225,7 +244,7 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
     seconds = time.perf_counter() - t0
     launches = nn_search.kernel_launches
     GlobalMappingCallbacks.on_smoother_update_result.remove(handle)
-    if not glim.async_mode:
+    if count_between:
         del gm._gicp_refine_between
 
     ests = glim.odometry_estimates
@@ -243,9 +262,10 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
         poses_finite=bool(all(np.all(np.isfinite(T)) for T in poses)),
         ate=ate_rmse(poses, gt, align=True),
         submaps=len(subs), optimizes=counts["optimizes"],
-        matching_factors=len(gm.matching_factors), between_factors=len(gm.between_factors),
-        between_refinements=gm.between_refinements,
-        between_launches=None if glim.async_mode else counts["between_launches"],
+        matching_factors=len(getattr(gm, "matching_factors", ())),
+        between_factors=len(getattr(gm, "between_factors", ())),
+        between_refinements=getattr(gm, "between_refinements", 0),
+        between_launches=counts["between_launches"] if count_between else None,
         submap_origins_finite=bool(all(np.all(np.isfinite(s.T_world_origin)) for s in subs)),
         submap_ate=submap_origin_ate(subs, seq))
 
@@ -772,17 +792,246 @@ def check_eval_figure8(res: dict) -> None:
                              f"{EVAL_FIGURE8_ATE} m +- {tol} m")
 
 
+# Phase 5d: the JAX stress tool's ring through the pose-graph back-end
+# (EVAL.md "Pose-graph backend at scale": 0.6493 m after the closure).
+POSE_RING_POST_BOUND = 1.1 * 0.6493     # m
+# Phase 9: the pose-graph configuration: the default configuration with the
+# pose-graph back-end and both sub-mapping options, on a circle that closes
+# its loop (1.15 laps, 72 m of travel past the shipped 50 m min_travel_dist).
+POSE_GRAPH_EDITS = [
+    ("config", "global", "config_global_mapping", "config_global_mapping_pose_graph.json"),
+    ("config_sub_mapping", "sub_mapping", "enable_optimization", True),
+    ("config_sub_mapping", "sub_mapping", "create_between_factors", True)]
+POSE_GRAPH_SCANS = 120
+POSE_GRAPH_RADIUS, POSE_GRAPH_OMEGA = 10.0, 0.6
+
+
+def run_pose_graph_ring(device, n_submaps: int = RING_SUBMAPS, interval: int = 4) -> dict:
+    """Phase 5d: the drifting ring through the port's GlobalMappingPoseGraph
+    (``backend_stress.run_pose_graph``: the detection thread on, 4
+    evaluations an insert, an optimize every ``interval``); the nn_search
+    count is zeroed just before and read just after."""
+    from glim_tpu_torch.ops.nn_search import nn_search
+    from glim_tpu_torch.tools import backend_stress
+
+    _release_pipelines()
+    t0 = time.perf_counter()
+    nn_search.kernel_launches = 0
+    rows, gm = backend_stress.run_pose_graph(n_submaps, interval, device=device, quiet=True)
+    launches = nn_search.kernel_launches
+    last = rows[-1]
+    return dict(submaps=n_submaps, rows=rows, seconds=time.perf_counter() - t0,
+                loops=last["loops"], factors=len(gm.f_i), registrations=gm.registrations,
+                global_registrations=gm.global_registrations, kernel_launches=launches,
+                expected_launches=gm.nn_search_calls(), detect_drain_s=last["detect_drain_s"],
+                final_optimize_ms=last["final_optimize_ms"],
+                ate_pre_closure_m=last["ate_pre_closure_m"],
+                ate_post_closure_m=last["ate_post_closure_m"],
+                poses_finite=bool(all(np.all(np.isfinite(T)) for T in gm.poses)),
+                on_card=torch.device(device).type == "cuda")
+
+
+def check_pose_graph_ring(res: dict) -> None:
+    if abs(res["ate_pre_closure_m"] - RING_PRE_ATE) > RING_PRE_TOL:
+        raise AssertionError(f"pose-graph ring: pre-closure ATE {res['ate_pre_closure_m']:.6f} "
+                             f"m, the JAX ring's is {RING_PRE_ATE} m")
+    if not (res["poses_finite"] and res["ate_post_closure_m"] <= POSE_RING_POST_BOUND):
+        raise AssertionError(f"pose-graph ring: post-closure ATE {res['ate_post_closure_m']:.6f}"
+                             f" m > {POSE_RING_POST_BOUND:.4f} m or non-finite poses")
+    if res["loops"] < 1:
+        raise AssertionError("pose-graph ring: no loop accepted")
+    if res["on_card"] and res["kernel_launches"] != res["expected_launches"]:
+        raise AssertionError(f"pose-graph ring: {res['kernel_launches']} nn_search launches, "
+                             f"want {res['expected_launches']} ({res['registrations']} "
+                             "registrations)")
+
+
+def _print_pose_graph_ring(res: dict, card: str) -> None:
+    for row in res["rows"]:
+        print("pose-graph ring: " + json.dumps(row))
+    for row in res["rows"]:
+        print(f"pose-graph ring [{card}]: {row['submaps']} submaps, {row['factors']} factors, "
+              f"{row['loops']} loops, insert {row['insert_mean_ms']:.2f} ms, optimize "
+              f"{row['optimize_mean_ms']:.2f} ms (last {row['optimize_last_ms']:.2f} ms), ATE "
+              f"{row['ate_rmse_m']:.4f} m")
+    print(f"pose-graph ring [{card}]: {res['submaps']} submaps in {res['seconds']:.2f} s, "
+          f"{res['loops']} loops, {res['registrations']} registrations "
+          f"({res['global_registrations']} from a global registration), "
+          f"{res['kernel_launches']} nn_search launches (want {res['expected_launches']}), "
+          f"detection drain {res['detect_drain_s']:.3f} s, final optimize "
+          f"{res['final_optimize_ms']:.2f} ms, ATE pre-closure {res['ate_pre_closure_m']:.6f} m, "
+          f"post-closure {res['ate_post_closure_m']:.6f} m (bound {POSE_RING_POST_BOUND:.4f})")
+
+
+class _SyncCounter:
+    """Host syncs (``torch.cuda.set_sync_debug_mode("warn")`` warnings)
+    raised on this thread while the wrapped calls run; nothing on the CPU."""
+
+    def __init__(self, on_card: bool):
+        self.on_card = on_card
+        self.count = 0
+
+    def wrap(self, fn):
+        import threading
+
+        def counted(*args, **kw):
+            if not self.on_card:
+                return fn(*args, **kw)
+            me = threading.current_thread()
+            show = warnings.showwarning
+
+            def record(message, *a, **k):
+                if threading.current_thread() is me and "synchroniz" in str(message):
+                    self.count += 1
+                else:
+                    show(message, *a, **k)
+            prev = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = record
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+        return counted
+
+
+def _sync_untracked(dev) -> None:
+    """A device sync for a timing, outside any sync count."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode(prev)
+
+
+def run_pose_graph_config(device, n_scans: int = POSE_GRAPH_SCANS, n_scan_points: int = 65536,
+                          scene_points: int = 400000, seed: int = 0,
+                          radius: float = POSE_GRAPH_RADIUS, omega: float = POSE_GRAPH_OMEGA,
+                          overrides=None) -> dict:
+    """Phase 9: GlimTorch (sync) on the pose-graph configuration over
+    phase 5's generator on a circle of ``radius`` at ``omega`` (``overrides``:
+    the CPU rehearsal's sizes); returns the run's metrics with the
+    sub-mapping refinements (their ms and host syncs a submap), the loops
+    and the nn_search launches the run should make (the odometry's, one a
+    between information, and the pose graph's registrations)."""
+    from glim_tpu_torch.io.synthetic import generate_sequence
+    from glim_tpu_torch.mapping.callbacks import SubMappingCallbacks
+    from glim_tpu_torch.pipeline import GlimTorch
+
+    _release_pipelines()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = (lambda: _sync_untracked(dev)) if on_card else (lambda: None)
+    seq = generate_sequence(duration=n_scans / 10.0, scan_hz=10.0, imu_hz=200.0,
+                            n_scan_points=n_scan_points, scene_points=scene_points,
+                            noise=0.01, seed=seed, radius=radius, omega=omega)
+    glim = GlimTorch(config_dir(POSE_GRAPH_EDITS, "glim_smoke_pose_graph_"), async_mode=False,
+                     device=dev, overrides=overrides)
+    sub, gm = glim.sub_mapping, glim.global_backend
+    to_sub, refine_ms, keyframes = [], [], []
+    SubMappingCallbacks.on_insert_frame.add(lambda f: to_sub.append(f.id))
+    refine, create = sub._refine, sub._create_submap
+    syncs_refine, syncs_submap = _SyncCounter(on_card), _SyncCounter(on_card)
+
+    def timed_refine():
+        keyframes.append(len(sub.keyframes))
+        sync()
+        t0 = time.perf_counter()
+        out = syncs_refine.wrap(refine)()
+        sync()
+        refine_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    sub._refine = timed_refine
+    sub._create_submap = syncs_submap.wrap(create)
+    res = _timed_run(glim, seq, dev)
+    subs = glim.submaps
+    n_refined = sum(1 for k in keyframes if k >= 2)
+    res.update(
+        name="pose_graph", odometry=type(glim.odometry).__name__,
+        global_mapping=type(gm).__name__, loops=gm.num_loops, factors=len(gm.f_i),
+        registrations=gm.registrations, global_registrations=gm.global_registrations,
+        between_infos=sub.between_infos, refinements=sub.refinements,
+        refinements_wanted=n_refined,
+        refine_ms=refine_ms, refine_ms_mean=float(np.mean(refine_ms)) if refine_ms else None,
+        host_syncs_refine=syncs_refine.count if on_card else None,
+        host_syncs_submap=syncs_submap.count if on_card else None,
+        expected_launches=(expected_launches(glim.odometry, 0) + sub.between_infos
+                           + gm.nn_search_calls()),
+        frames_per_submap=[len(s.frames) for s in subs],
+        submap_frames_total=sum(len(s.frames) for s in subs), frames_to_sub_mapping=len(to_sub))
+    return res
+
+
+def check_pose_graph_config(res: dict) -> None:
+    """Phase 9's failure conditions: finite poses, the odometry and
+    submap-origin ATE bounds, every frame that reached sub-mapping in a
+    submap, a refinement of every submap with two keyframes or more, a
+    loop, an optimize and, on the card, the exact nn_search launch count."""
+    name = "pose-graph configuration"
+    if not (res["poses_finite"] and res["submap_origins_finite"]):
+        raise AssertionError(f"{name}: non-finite poses")
+    if not res["ate"] < DEFAULT_ATE_BOUND:
+        raise AssertionError(f"{name}: ATE {res['ate']:.4f} m >= {DEFAULT_ATE_BOUND} m")
+    if res["submaps"] < 2 or res["submap_frames_total"] != res["frames_to_sub_mapping"]:
+        raise AssertionError(f"{name}: {res['submaps']} submaps holding "
+                             f"{res['submap_frames_total']} frames, "
+                             f"{res['frames_to_sub_mapping']} reached sub-mapping")
+    if res["refinements"] != res["refinements_wanted"] or res["refinements"] < 1:
+        raise AssertionError(f"{name}: {res['refinements']} refinements, want "
+                             f"{res['refinements_wanted']}")
+    if res["loops"] < 1 or res["optimizes"] < 1:
+        raise AssertionError(f"{name}: {res['loops']} loops, {res['optimizes']} optimizes")
+    if res["submap_ate"] is None or not res["submap_ate"] < SUBMAP_ATE_BOUND:
+        raise AssertionError(f"{name}: submap-origin ATE {res['submap_ate']} m for "
+                             f"{res['submaps']} submaps, want under {SUBMAP_ATE_BOUND} m")
+    on_card = res["max_memory_allocated"] is not None
+    if on_card and res["kernel_launches"] != res["expected_launches"]:
+        raise AssertionError(
+            f"{name}: {res['kernel_launches']} nn_search launches, want "
+            f"{res['expected_launches']} ({res['between_infos']} between informations, "
+            f"{res['registrations']} registrations)")
+
+
+def _print_pose_graph_config(res: dict, card: str) -> None:
+    print("pose_graph: " + json.dumps(res))
+    mem = res["max_memory_allocated"]
+    print(f"pose_graph [{card}]: {res['odometry']} + SubMapping (refined, GICP betweens) + "
+          f"{res['global_mapping']}, {res['scans']} scans in {res['seconds']:.2f} s = "
+          f"{res['scans_per_s']:.4f} scans/s, ATE {res['ate']:.4f} m, {res['submaps']} submaps "
+          f"(frames {res['frames_per_submap']}), {res['refinements']} refinements at "
+          f"{res['refine_ms_mean']} ms mean, host syncs {res['host_syncs_refine']} in the "
+          f"refinements / {res['host_syncs_submap']} in the submap closes, {res['loops']} loops "
+          f"({res['registrations']} registrations, {res['global_registrations']} from a global "
+          f"registration), {res['optimizes']} optimizes, submap-origin ATE {res['submap_ate']} m, "
+          f"{res['kernel_launches']} nn_search launches (want {res['expected_launches']} = "
+          f"{res['between_infos']} between informations + pose-graph registrations), max memory "
+          + (f"{mem / 2**20:.1f} MiB" if mem is not None else "not measured"))
+
+
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def _nn_case(gen, Q, N, masked=0.3, scale=20.0):
+# Phase 2's shapes: (name, Q, N, masked share of the targets, of the
+# queries), the callers' and a ragged one (last).
+NN_CHECKS = (("main Q=16384 N=131072", 16384, 131072, 0.3, 0.05),
+             ("main Q=4096 N=131072", 4096, 131072, 0.3, 0.05),
+             ("between refinement Q=N=4096", 4096, 4096, 0.05, 0.05),
+             ("CT iVox Q=16384 N=65536", 16384, 65536, 0.3, 0.05),
+             ("sub-mapping between information Q=N=16384", 16384, 16384, 0.39, 0.39),
+             ("pose-graph inlier fraction Q=N=10923", 10923, 10923, 0.24, 0.24),
+             ("pose-graph ring Q=N=2048", 2048, 2048, 0.05, 0.05),
+             ("ragged Q=1000 N=3001", 1000, 3001, 0.3, 0.05))
+
+
+def _nn_case(gen, Q, N, masked=0.3, scale=20.0, q_masked=0.05):
     dev = torch.device("cuda")
     q = (torch.rand(Q, 3, generator=gen, device=dev) - 0.5) * scale
     t = (torch.rand(N, 3, generator=gen, device=dev) - 0.5) * scale
-    qm = torch.rand(Q, generator=gen, device=dev) >= 0.05
+    qm = torch.rand(Q, generator=gen, device=dev) >= q_masked
     tm = torch.rand(N, generator=gen, device=dev) >= masked
     return q, qm, t, tm
 
@@ -879,12 +1128,9 @@ def check_nn_search() -> float:
             print("  ptxas:", line.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
-    for name, Q, N, masked in (("main Q=16384 N=131072", 16384, 131072, 0.3),
-                               ("main Q=4096 N=131072", 4096, 131072, 0.3),
-                               ("between refinement Q=N=4096", 4096, 4096, 0.05),
-                               ("CT iVox Q=16384 N=65536", 16384, 65536, 0.3),
-                               ("ragged Q=1000 N=3001", 1000, 3001, 0.3)):
-        max_err = max(max_err, _compare(name, *_nn_case(gen, Q, N, masked), search, plain))
+    for name, Q, N, masked, q_masked in NN_CHECKS:
+        max_err = max(max_err, _compare(name, *_nn_case(gen, Q, N, masked, q_masked=q_masked),
+                                        search, plain))
 
     def lowest_wins(name, case, rows, want):
         max_err = _compare(name, *case, search, plain)
@@ -906,11 +1152,11 @@ def check_nn_search() -> float:
     # on a target has d2 = 0, where the plain version's cancellation error
     # (a few ulp of 2|t|^2) must stay under REL_TOL.
     # Both copies of 64 targets on either side of the middle split boundary,
-    # at the odometry's, the between refinement's and CT iVox's shape.
-    for Q, N, masked in ((16384, 131072, 0.3), (4096, 4096, 0.05), (16384, 65536, 0.3)):
+    # at every caller's shape (but the ragged one).
+    for _, Q, N, masked, q_masked in NN_CHECKS[:-1]:
         _, splits, split_len = nn.launch_geometry(Q, N, nn._sm_count(0))
         b = split_len * (splits // 2)
-        q, qm, t, tm = _nn_case(gen, Q, N, masked)
+        q, qm, t, tm = _nn_case(gen, Q, N, masked, q_masked=q_masked)
         t[b - 64:b] *= 0.25
         t[b:b + 64] = t[b - 64:b]
         tm[b - 64:b + 64] = True
@@ -989,13 +1235,16 @@ def nn_bound_ms(q, qm, t, tm):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes > by_ops else "operations"
 
 
-# Phase 3's shapes: (Q, N, masked share of the targets, key suffix).
-NN_SHAPES = ((16384, 131072, 0.3, ""), (4096, 131072, 0.3, "_q4096"),
-             (4096, 4096, 0.05, "_q4096_n4096"), (16384, 65536, 0.3, "_n65536"))
+# Phase 3's shapes: (Q, N, masked share of the targets, of the queries, key
+# suffix).
+NN_SHAPES = ((16384, 131072, 0.3, 0.05, ""), (4096, 131072, 0.3, 0.05, "_q4096"),
+             (4096, 4096, 0.05, 0.05, "_q4096_n4096"), (16384, 65536, 0.3, 0.05, "_n65536"),
+             (16384, 16384, 0.39, 0.39, "_q16384_n16384"),
+             (10923, 10923, 0.24, 0.24, "_n10923"), (2048, 2048, 0.05, 0.05, "_n2048"))
 
 
 def time_nn_search(card: str, v1_src=None) -> dict:
-    """Phase 3: CUDA-event times at the three main-path shapes, in turns
+    """Phase 3: CUDA-event times at the callers' shapes, in turns
     (plain, [v1,] kernel, kernel, [v1,] plain), each with its bound and
     share, then the host time to enqueue a call; ``v1_src`` adds the first
     port's kernel built from that source."""
@@ -1004,8 +1253,8 @@ def time_nn_search(card: str, v1_src=None) -> dict:
     v1 = _nn_search_v1(v1_src) if v1_src else None
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for Q, N, masked, sfx in NN_SHAPES:
-        case = _nn_case(gen, Q, N, masked)
+    for Q, N, masked, q_masked, sfx in NN_SHAPES:
+        case = _nn_case(gen, Q, N, masked, q_masked=q_masked)
         kern, plain = (lambda: nn_search(*case)), (lambda: nn_search_plain(*case))
         _time(kern, 3), _time(plain, 1)                       # warm-up
         p1 = _time(plain, 5)
@@ -1536,6 +1785,11 @@ def main() -> int:
     _print_ring(rres, card)
     check_ring(rres)
 
+    # --- 5d. the same ring through the pose-graph back-end ---
+    pres = run_pose_graph_ring("cuda")
+    _print_pose_graph_ring(pres, card)
+    check_pose_graph_ring(pres)
+
     # --- 6. the async runner at full size, its dump, and the GICP slice async ---
     ares = run_async_default("cuda")
     _print_async(ares, dres, card)
@@ -1563,7 +1817,12 @@ def main() -> int:
           f"{fres['scans_per_s']:.3f} scans/s after the warm-up, {fres['submaps']} submaps")
     check_eval_figure8(fres)
 
-    # --- 9. summary ---
+    # --- 9. the pose-graph configuration (refined submaps, GICP betweens, loops) ---
+    gres9 = run_pose_graph_config("cuda")
+    _print_pose_graph_config(gres9, card)
+    check_pose_graph_config(gres9)
+
+    # --- 10. summary ---
     print(json.dumps({"kernels": [{
         "name": "nn_search", "route": "cuda",
         "source": "glim_tpu_torch/csrc/nn_search.cu",
@@ -1574,6 +1833,10 @@ def main() -> int:
         "launches_async_gicp": gres["kernel_launches"],
         "launches_ct_ivox": shipped["ct_ivox"]["kernel_launches"],
         "launches_lidar_only": shipped["lidar_only"]["kernel_launches"],
+        "launches_pose_graph_ring": pres["kernel_launches"],
+        "launches_pose_graph": gres9["kernel_launches"],
+        "launches_sub_mapping_between": gres9["between_infos"],
+        "launches_pose_graph_registrations": gres9["kernel_launches"] - gres9["between_infos"],
         "max_abs_err": max_err, **timing}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

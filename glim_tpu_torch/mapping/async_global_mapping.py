@@ -124,7 +124,10 @@ class AsyncGlobalMapping:
         if req[0] == "tp":
             gm.add_translation_prior(req[1], req[2], req[3])
         elif req[0] == "loop":
-            gm.add_matching_factor(req[1], req[2])
+            if hasattr(gm, "add_matching_factor"):
+                gm.add_matching_factor(req[1], req[2])
+            else:                        # the pose graph validates it first
+                gm.add_loop_candidate(req[1], req[2])
         elif req[0] == "between":
             gm.add_between_factor(req[1], req[2], req[3], req[4])
             self._request_optimize.set()

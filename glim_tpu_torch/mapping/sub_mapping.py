@@ -9,21 +9,23 @@ src/glim/mapping/sub_mapping.cpp:104-500):
     voxel map, or by DISPLACEMENT; a keyframe is re-deskewed with the
     smoothed IMU-rate poses, its covariances re-estimated, its points
     stride-sampled, and it gets one voxel map per level;
-  * a submap at ``max_num_keyframes``: the keyframes merged and voxel-grid
-    downsampled (points and covariances) in the frame of the central FRAME,
-    with both endpoint offsets for global mapping's IMU chain.
+  * per-frame factor bookkeeping for the batch refinement: odometry
+    between factors with, under ``create_between_factors``, a GICP-Hessian
+    information (``_between_info_gicp``: one ``nn_search`` a frame after
+    the submap's first), and the IMU preintegration of every edge;
+  * a submap at ``max_num_keyframes``: under ``enable_optimization`` one LM
+    over every frame state (``mapping/submap_refine.py``), then the
+    keyframes merged and voxel-grid downsampled (points and covariances)
+    at the refined poses in the frame of the central FRAME, with both
+    endpoint offsets for global mapping's IMU chain.
 
 The overlap gate of a frame is computed on the device from the frame's
 device pose as soon as the frame arrives, and copied to pinned host memory
 behind an event; the keyframe decision reads it once it has landed (or
 when more than ``gate_keep`` decisions are waiting). Per-frame host data
-goes up in one packed upload.
-
-Not ported: the in-submap batch refinement (``enable_optimization``, which
-needs ``submap_refine``) and the between factors it would use
-(``create_between_factors``, which needs ``gicp.gicp_linearize``); either
-option raises. The per-frame IMU preintegration is kept, as in the JAX
-package, as the refinement's input.
+goes up in one packed upload. A frame's between information stays on the
+device with its host copy started (``HostCopy``); the refinement reads them
+all when it starts, and reads its result once.
 """
 
 from __future__ import annotations
@@ -37,13 +39,16 @@ from torch.profiler import record_function
 
 from glim_tpu_torch.mapping.callbacks import SubMappingCallbacks as CB
 from glim_tpu_torch.mapping.sub_mapping_base import SubMappingBase
+from glim_tpu_torch.mapping.submap_refine import submap_refine
+from glim_tpu_torch.odometry.window_estimator import _zero_preints
 from glim_tpu_torch.ops import covariance as cov_ops
 from glim_tpu_torch.ops import deskew as deskew_ops
+from glim_tpu_torch.ops import gicp, lie, lie_np, pointops
 from glim_tpu_torch.ops import imu as imu_ops
-from glim_tpu_torch.ops import lie, lie_np, pointops
 from glim_tpu_torch.ops import voxelmap as vmx
+from glim_tpu_torch.ops.imu import PreintegratedImu
 from glim_tpu_torch.types import (EstimationFrame, HostCopy, PointBatch, SubMap,
-                                  upload)
+                                  to_numpy, upload)
 from glim_tpu_torch.utils.logging import create_module_logger
 from glim_tpu_torch.utils.registry import register_module
 
@@ -51,6 +56,8 @@ logger = create_module_logger("sub")
 
 GRAVITY = np.array([0.0, 0.0, -9.80665])
 IMU_CHAIN_CAP = 64          # padded IMU samples per inter-frame interval
+MAX_REFINED_FRAMES = 256    # the JAX package's largest frame bucket; past it, no refinement
+BETWEEN_MIN_INLIERS = 500   # fewer GICP inliers: a fixed 1e3 information instead
 
 
 @dataclass
@@ -74,6 +81,9 @@ class SubMappingParams:
     submap_target_num_points: int = 50000
     submap_point_capacity: int = 65536
     keyframe_voxel_capacity: int = 16384
+    refine_subsample: int = 4          # refinement-cloud stride (Cs = C / this)
+    optimization_outer: int = 3
+    optimization_inner: int = 3
 
     @staticmethod
     def from_config(config) -> "SubMappingParams":
@@ -114,6 +124,16 @@ def _merge_keyframes(kf_points, kf_covs, kf_masks, kf_T_origin_kf, kf_valid,
     return pointops.voxelgrid_sampling_covs(
         pts.reshape(-1, 3), covs.reshape(-1, 3, 3), mask.reshape(-1),
         resolution, out_capacity=out_cap)
+
+
+def _between_info_gicp(T_last, T_cur, last_pts, last_covs, last_mask,
+                       cur_pts, cur_covs, cur_mask, max_dist):
+    """6x6 information of the odometry delta from a GICP linearization of
+    the current frame against the last frame's points (reference
+    sub_mapping.cpp:193-210), and the inlier count -> (H, n_inliers)."""
+    s = gicp.gicp_linearize(T_last, T_cur, cur_pts, cur_covs, cur_mask,
+                            last_pts, last_covs, last_mask, max_dist)
+    return s.H_ss, s.num_inliers
 
 
 def _keyframe_gate(vm, points, mask, T_rel):
@@ -204,15 +224,6 @@ class SubMapping(SubMappingBase):
     def __init__(self, params: Optional[SubMappingParams] = None, device="cuda"):
         self.params = params or SubMappingParams()
         p = self.params
-        if p.enable_optimization:
-            raise NotImplementedError(
-                "sub_mapping: enable_optimization: true needs submap_refine, "
-                "which is not ported to glim_tpu_torch yet")
-        if p.create_between_factors:
-            raise NotImplementedError(
-                "sub_mapping: create_between_factors: true needs the GICP between "
-                "information (_between_info_gicp) and submap_refine, which are not "
-                "ported to glim_tpu_torch yet")
         self.device = torch.device(device)
         self.submap_count = 0
         self._delayed: List[EstimationFrame] = []
@@ -221,10 +232,18 @@ class SubMapping(SubMappingBase):
         self.keyframes: List[dict] = []             # device keyframe records
         self.submap_queue: List[SubMap] = []
         self.imu_buffer: List[np.ndarray] = []
-        # Per-edge preintegration, entry i connects frames (i-1, i): the
-        # input of the batch refinement.
+        # Per-edge factor data of the batch refinement, entry i connects
+        # frames (i-1, i): the odometry delta, the between information (a
+        # HostCopy of [H (36), n_inliers], None, or unused), its validity,
+        # and the preintegration.
+        self._bt_delta: List[np.ndarray] = []
+        self._bt_info: List = []
+        self._bt_valid: List[bool] = []
         self._preints: List = []
         self._pre_valid: List[bool] = []
+        self._last_frame_full = dict(T=np.eye(4), pts=None, covs=None, mask=None)
+        self.refinements = 0             # submaps refined (_refine ran its LM)
+        self.between_infos = 0           # _between_info_gicp calls (nn_search launches)
         # Deferred keyframe decisions (gate HostCopy, frame, frame index),
         # read once the gate has landed; at most `gate_keep` wait.
         self._kf_pending: List[tuple] = []
@@ -235,6 +254,7 @@ class SubMapping(SubMappingBase):
         self._d_gyro_noise = full(0.02)
         self._d_int_noise = full(0.001)
         self._d_gravity = upload(GRAVITY.astype(np.float32), dev)
+        self._d_max_dist = full(1.0)     # between-information correspondence distance
         self._d_downsample_res = full(float(p.submap_downsample_resolution))
         self._d_T_li = None          # inverse of T_lidar_imu, for the IMU program
         self._d_T_li_fwd = None      # T_lidar_imu, for the keyframe re-deskew
@@ -284,13 +304,47 @@ class SubMapping(SubMappingBase):
         # Every scan of the submap (its optimized per-scan trajectory).
         self.frames.append(frame.clone_wo_points())
 
+        # Factor bookkeeping for the batch refinement.
+        T_frame = frame.T_world_sensor()
+        last = self._last_frame_full
+        if current == 0:
+            self._bt_delta.append(np.eye(4))
+            self._bt_info.append(None)
+            self._bt_valid.append(False)
+        else:
+            info = None
+            if (p.create_between_factors and p.between_registration_type.upper() == "GICP"
+                    and last["pts"] is not None and frame.frame is not None):
+                info = self._between_info(last, T_frame, frame.frame)
+            self._bt_delta.append(np.linalg.inv(last["T"]) @ T_frame)
+            self._bt_info.append(info)
+            self._bt_valid.append(p.create_between_factors)
         if p.enable_imu and current > 0 and nA < 2:
             logger.warning("insufficient IMU data between LiDAR frames!! (sub_mapping)")
         ok = p.enable_imu and current > 0 and nA >= 2
         self._preints.append(pre_dev if ok else None)
         self._pre_valid.append(ok)
+        # Only the last frame's full cloud is kept (for the next between).
+        cloud = frame.frame
+        self._last_frame_full = dict(
+            T=T_frame, pts=cloud.points if cloud is not None else None,
+            covs=cloud.covs if cloud is not None else None,
+            mask=cloud.mask if cloud is not None else None)
 
         self._kf_pending.append((gate_pending, frame, current))
+
+    def _between_info(self, last: dict, T_cur: np.ndarray, cloud: PointBatch) -> HostCopy:
+        """The GICP between information of this frame against the last one,
+        packed [H (36), n_inliers] on the device with its host copy started;
+        the refinement reads it."""
+        zeros = lambda pts: torch.zeros(pts.shape[:1] + (3, 3), device=pts.device)
+        last_covs = last["covs"] if last["covs"] is not None else zeros(last["pts"])
+        cur_covs = cloud.covs if cloud.covs is not None else zeros(cloud.points)
+        T = upload(np.stack([last["T"], T_cur]).astype(np.float32), self.device)
+        H, n_in = _between_info_gicp(T[0], T[1], last["pts"], last_covs, last["mask"],
+                                     cloud.points, cur_covs, cloud.mask, self._d_max_dist)
+        self.between_infos += 1
+        return HostCopy(torch.cat([H.reshape(-1), n_in.to(torch.float32).reshape(1)]))
 
     def _resolve_pending_keyframes(self, force_all: bool = False,
                                    keep: int = None) -> None:
@@ -468,6 +522,71 @@ class SubMapping(SubMappingBase):
             pts=s_pts, covs=s_covs, mask=s_mask,
             full_pts=pts, full_covs=covs, full_mask=mask, vms=vms))
 
+    def _refine(self) -> Optional[tuple]:
+        """Batch LM over all frame states (``submap_refine``) -> (T (N, 4, 4),
+        v, b) as numpy, or None when disabled or degenerate. The between
+        informations' host copies are read here (one wait each, long
+        landed), and the result in one read."""
+        p = self.params
+        N = len(self.frames)
+        if not p.enable_optimization or N < 2 or len(self.keyframes) < 2:
+            return None
+        if N > MAX_REFINED_FRAMES:
+            logger.warning("submap has %d frames > %d; skipping batch refinement", N,
+                           MAX_REFINED_FRAMES)
+            return None
+        dev = self.device
+        bt_info = np.tile(np.eye(6, dtype=np.float32), (N, 1, 1))
+        for i, info in enumerate(self._bt_info):
+            if not self._bt_valid[i]:
+                continue
+            packed = info.numpy() if info is not None else None
+            if packed is not None and int(packed[36]) >= BETWEEN_MIN_INLIERS:
+                bt_info[i] = packed[:36].reshape(6, 6)
+            else:
+                bt_info[i] = np.eye(6) * 1e3
+        kfs = self.keyframes[:p.max_num_keyframes]
+        K = len(kfs)
+        kf_fidx = np.zeros(N, np.float32)           # keyframe k's frame in row k < K
+        kf_fidx[:K] = [kf["fidx"] for kf in kfs]
+        # One upload of every per-frame input.
+        host = upload(np.concatenate([
+            np.stack([fr.T_world_sensor() for fr in self.frames]).reshape(N, -1),
+            np.stack([fr.v_world_imu for fr in self.frames]),
+            np.stack([fr.imu_bias for fr in self.frames]),
+            np.stack(self._bt_delta).reshape(N, -1), bt_info.reshape(N, -1),
+            np.asarray(self._bt_valid, np.float32)[:, None],
+            np.asarray(self._pre_valid, np.float32)[:, None], kf_fidx[:, None]],
+            axis=1).astype(np.float32), dev)
+        T0_d, v0_d, b0_d = host[:, :16].reshape(N, 4, 4), host[:, 16:19], host[:, 19:25]
+        btd_d = host[:, 25:41].reshape(N, 4, 4)
+        bti_d = host[:, 41:77].reshape(N, 6, 6)
+        btv_d, prv_d = host[:, 77] > 0.5, host[1:, 78] > 0.5
+        kf_fidx_d = host[:K, 79].to(torch.int64)
+
+        # Edge (i, i+1)'s preintegration is entry i + 1 (zeros where invalid).
+        zero = _zero_preints(2, dev).map(lambda x: x[0])
+        pre = PreintegratedImu(*(torch.stack(xs) for xs in zip(*(
+            (self._preints[i] or zero).astuple() for i in range(1, N)))))
+
+        rs = max(1, p.refine_subsample)
+        stack = lambda key: torch.stack([kf[key][::rs] for kf in kfs])
+        tables = []
+        for lvl in range(max(p.keyframe_voxelmap_levels, 1)):
+            keys, stats = zip(*(vmx.gaussian_lookup_table(kf["vms"][lvl]) for kf in kfs))
+            tables.append((torch.stack(keys), torch.stack(stats),
+                           torch.stack([kf["vms"][lvl].resolution for kf in kfs])))
+        with record_function("sub/refine"):
+            T, v, b, err = submap_refine(
+                T0_d, v0_d, b0_d, btd_d, bti_d, btv_d, pre, prv_d, stack("pts"),
+                stack("covs"), stack("mask"), kf_fidx_d, tables, self._d_gravity,
+                outer=p.optimization_outer, inner=p.optimization_inner)
+            out = to_numpy(torch.cat([T.reshape(N, -1), v, b, err.expand(N, 1)], dim=1),
+                           np.float64)
+        self.refinements += 1
+        CB.on_optimization_status(dict(error=float(out[0, 25])), None)
+        return out[:, :16].reshape(N, 4, 4), out[:, 16:19], out[:, 19:25]
+
     def _create_submap(self) -> None:
         with record_function("sub/create_submap"):
             self._create_submap_impl()
@@ -478,6 +597,12 @@ class SubMapping(SubMappingBase):
         N = len(self.frames)
         if K == 0 or N == 0:
             return
+        refined = self._refine()
+        if refined is not None:
+            for fr, T, v, b in zip(self.frames, *refined):
+                fr.set_T_world_sensor(T)
+                fr.v_world_imu = v
+                fr.imu_bias = b
         # Origin at the central FRAME.
         T_world_origin = self.frames[N // 2].T_world_sensor()
         T_origin_world = np.linalg.inv(T_world_origin)
@@ -515,11 +640,15 @@ class SubMapping(SubMappingBase):
         self.keyframes = []
         self.frames = []
         self.odom_frames = []
+        self._bt_delta = []
+        self._bt_info = []
+        self._bt_valid = []
         self._preints = []
         self._pre_valid = []
         self.submap_queue.append(submap)
         CB.on_new_submap(submap)
-        logger.info("submap %d created (%d keyframes, %d frames)", submap.id, K, N)
+        logger.info("submap %d created (%d keyframes, %d frames%s)", submap.id, K, N,
+                    ", refined" if refined is not None else "")
 
 
 @register_module("sub_mapping", "sub_mapping")

@@ -1,8 +1,7 @@
 """GICP / VGICP matching-cost linearization.
 
-Twin of the parts of ``glim_tpu/ops/gicp.py`` the odometry and the global
-back-end use. A factor is a pure function returning the summed Gauss-Newton
-system
+Twin of ``glim_tpu/ops/gicp.py``. A factor is a pure function returning
+the summed Gauss-Newton system
 
     H = sum_i J_i^T Omega_i J_i,   b = sum_i J_i^T Omega_i r_i,
     err = sum_i r_i^T Omega_i r_i
@@ -192,3 +191,54 @@ def gicp_linearize(T_target, T_source, src_pts, src_covs, src_mask,
     inlier = src_mask & (d2 < max_dist * max_dist) & torch.isfinite(d2)
     return _soa_system(R_rel, t_rel, src_pts, src_covs, tgt_pts[idx], tgt_covs[idx],
                        inlier.to(q.dtype))
+
+
+@record_function("vgicp_linearize")
+def vgicp_linearize(T_target, T_source, src_pts, src_covs, src_mask,
+                    vm: GaussianVoxelMap, keys=None) -> FactorSystem:
+    """VGICP factor against a target Gaussian voxel map: ``vgicp_lookup``
+    and the linearization in one call. ``keys`` is the map's
+    ``lookup_table``, for callers that register against one map many
+    times."""
+    mu, C_t, hit = vgicp_lookup(T_target, T_source, src_pts, src_mask, vm, keys)
+    return vgicp_linearize_cached(T_target, T_source, src_pts, src_covs, mu, C_t,
+                                  hit.to(src_pts.dtype))
+
+
+def icp_linearize(T_target, T_source, src_pts, src_mask, tgt_pts, tgt_mask,
+                  max_dist) -> FactorSystem:
+    """Point-to-point ICP factor: GICP with a zero source and an identity
+    target covariance, i.e. isotropic Mahalanobis weights; correspondences
+    from ``nn_search``."""
+    T_rel = se3_inv(T_target) @ T_source
+    R_rel, t_rel = T_rel[:3, :3], T_rel[:3, 3]
+    q = src_pts @ R_rel.T + t_rel
+    idx, d2 = nn_search(q, src_mask, tgt_pts, tgt_mask)
+    inlier = src_mask & (d2 < max_dist * max_dist) & torch.isfinite(d2)
+    zeros = torch.zeros(q.shape + (3,), dtype=q.dtype, device=q.device)
+    eyes = torch.eye(3, dtype=q.dtype, device=q.device).expand(q.shape + (3,))
+    return _soa_system(R_rel, t_rel, src_pts, zeros, tgt_pts[idx.to(torch.int64)], eyes,
+                       inlier.to(q.dtype))
+
+
+def gicp_error(T_target, T_source, src_pts, src_covs, src_mask,
+               tgt_pts, tgt_covs, tgt_mask, max_dist) -> torch.Tensor:
+    return gicp_linearize(T_target, T_source, src_pts, src_covs, src_mask,
+                          tgt_pts, tgt_covs, tgt_mask, max_dist).error
+
+
+def vgicp_error(T_target, T_source, src_pts, src_covs, src_mask, vm) -> torch.Tensor:
+    return vgicp_linearize(T_target, T_source, src_pts, src_covs, src_mask, vm).error
+
+
+@record_function("inlier_fraction")
+def inlier_fraction(T_target, T_source, src_pts, src_mask, tgt_pts, tgt_mask,
+                    max_dist) -> torch.Tensor:
+    """Fraction of valid source points with a valid target within
+    ``max_dist`` (0-dim f32 on the device; the pose graph's loop
+    validation), by ``nn_search``."""
+    T_rel = se3_inv(T_target) @ T_source
+    q = src_pts @ T_rel[:3, :3].T + T_rel[:3, 3]
+    _, d2 = nn_search(q, src_mask, tgt_pts, tgt_mask)
+    ok = src_mask & (d2 < max_dist * max_dist)
+    return ok.sum() / torch.clamp(src_mask.sum(), min=1)

@@ -108,3 +108,10 @@ def knn_banded(points: torch.Tensor, mask: torch.Tensor, k: int,
     d2k = torch.where(mask[:, None], d2k, float("inf"))
     nbr = torch.where(mask[:, None], nbr, 0)
     return nbr.to(torch.int32), d2k
+
+
+def knn_self(points: torch.Tensor, mask: torch.Tensor, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN graph of a cloud against itself, the self-match included
+    as neighbour 0."""
+    return knn_search(points, mask, points, mask, k=k, exclude_self=False)

@@ -20,9 +20,8 @@ the caller's thread.
 
 ``submaps`` are the global mapping's, with their optimized
 ``T_world_origin``. Extension modules (``glim_tpu/ext/``) are not ported: a
-non-empty ``extension_modules`` raises. A module the port lacks (for example
-``libglobal_mapping_pose_graph.so``) raises, naming the module; it is never
-swapped for another.
+non-empty ``extension_modules`` raises. A module the port lacks raises,
+naming the module; it is never swapped for another.
 """
 
 from __future__ import annotations

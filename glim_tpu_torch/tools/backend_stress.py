@@ -1,18 +1,21 @@
 """Global-mapping back-end on a drifting ring: scaling and loop closure.
 
-Twin of ``glim_tpu/tools/backend_stress.py``'s matching back-end run: the
-same numpy ring (same seed, same generator calls, so the same submaps and
-the same drifted odometry) through the port's ``GlobalMapping`` on a
-``device``. Each submap observes the structured blocks within sensor range;
-neighbouring submaps share structure, and the lap's end closes on its start.
+Twin of ``glim_tpu/tools/backend_stress.py``: the same numpy ring (same
+seed, same generator calls, so the same submaps and the same drifted
+odometry) through the port's ``GlobalMapping`` (``run``) or
+``GlobalMappingPoseGraph`` (``run_pose_graph``) on a ``device``. Each
+submap observes the structured blocks within sensor range; neighbouring
+submaps share structure, and the lap's end closes on its start.
 
 Usage:
     python -m glim_tpu_torch.tools.backend_stress --n 128 [--interval 4] [--device cuda]
+        [--backend matching|pose_graph]
 
 Prints one JSON row per checkpoint (16, 32, 64, 128, ... submaps): submaps,
-matching factors, mean insert and optimize wall (host clock up to a device
-sync), the steady optimize and the ATE so far; then the pre- and
-post-closure ATE.
+factors, mean insert and optimize wall (host clock up to a device sync)
+and the ATE so far (the matching back-end also its steady optimize, the
+pose graph its loops); then the pre- and post-closure ATE (the pose graph
+also the detection thread's drain).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import numpy as np
 import torch
 
 from glim_tpu_torch.mapping.global_mapping import GlobalMapping, GlobalMappingParams
+from glim_tpu_torch.mapping.global_mapping_pose_graph import (GlobalMappingPoseGraph,
+                                                              GlobalMappingPoseGraphParams)
 from glim_tpu_torch.ops import lie_np
 from glim_tpu_torch.types import PointBatch, SubMap, upload
 
@@ -73,6 +78,15 @@ def make_submap(rng, sid, world, T_true, device, sensor_range=20.0, cap=2048):
     return SubMap(id=sid, T_world_origin=np.eye(4),
                   frame=PointBatch(points=upload(pts, device), mask=upload(mask, device),
                                    covs=None))
+
+
+def _ring_pose(k, n, radius):
+    ang = 2 * np.pi * k / n
+    T = np.eye(4)
+    T[:2, 3] = radius * np.cos(ang), radius * np.sin(ang)
+    yaw = ang + np.pi / 2
+    T[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    return T
 
 
 def _true_xy(i, n, radius):
@@ -124,15 +138,9 @@ def run(n_submaps: int, interval: int, seed: int = 5, step: float = 6.0,
     ins_times, opt_times = [], []
     rows = []
     for k in range(n_submaps):
-        ang = 2 * np.pi * k / n_submaps
-        T_true = np.eye(4)
-        T_true[:2, 3] = radius * np.cos(ang), radius * np.sin(ang)
-        yaw = ang + np.pi / 2
-        T_true[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
-        if T_true_prev is None:
-            T_odom = T_true
-        else:
-            T_odom = T_odom @ np.linalg.inv(T_true_prev) @ T_true @ drift
+        T_true = _ring_pose(k, n_submaps, radius)
+        T_odom = T_true if T_true_prev is None else \
+            T_odom @ np.linalg.inv(T_true_prev) @ T_true @ drift
         T_true_prev = T_true
 
         odom_inputs.append(T_odom.copy())
@@ -182,14 +190,93 @@ def run(n_submaps: int, interval: int, seed: int = 5, step: float = 6.0,
     return rows, gm
 
 
+def run_pose_graph(n_submaps: int, interval: int = 4, seed: int = 5, step: float = 6.0,
+                   drift_rot: float = 2e-4, drift_trans: float = 3e-3, device="cuda",
+                   quiet: bool = False):
+    """The ring of ``n_submaps`` through GlobalMappingPoseGraph on ``device``
+    with the JAX tool's settings: the detection thread evaluates proximity
+    candidates (4 an insert) while submaps stream in, an optimize every
+    ``interval`` inserts. Returns the checkpoint rows, the last with the
+    loops, the detection drain and the pre- and post-closure ATE, and the
+    back-end (stopped)."""
+    import logging
+    logging.getLogger("glim_tpu_torch.global").setLevel(logging.WARNING)
+    dev = torch.device(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    rng = np.random.default_rng(seed)
+    radius = n_submaps * step / (2 * np.pi)
+    world = ring_world(rng, radius, max(n_submaps // 2, 8))
+
+    gm = GlobalMappingPoseGraph(GlobalMappingPoseGraphParams(
+        vgicp_voxel_resolution=1.0, voxel_capacity=16384, subsample_target=2048,
+        # The drifted lap comes back ~2 m off course: candidates within 12 m,
+        # validated by the registration's inliers.
+        max_neighbor_dist=12.0, min_travel_dist=40.0, loop_candidate_eval_per_insert=4),
+        device=dev)
+    drift = lie_np.se3_exp(np.array([0, 0, drift_rot, drift_trans, 0, 0.2 * drift_trans]))
+    T_true_prev = None
+    T_odom = np.eye(4)
+    odom_inputs: list = []
+    checkpoints = {16, 32, 64, 128, 256, 512}
+    ins_times, opt_times = [], []
+    rows = []
+    gm.defer_optimization = True
+    for k in range(n_submaps):
+        T_true = _ring_pose(k, n_submaps, radius)
+        T_odom = T_true if T_true_prev is None else \
+            T_odom @ np.linalg.inv(T_true_prev) @ T_true @ drift
+        T_true_prev = T_true
+        odom_inputs.append(T_odom.copy())
+        sm = make_submap(rng, k, world, T_true, dev)
+        sm.T_world_origin = T_odom
+        sync()
+        t0 = time.perf_counter()
+        gm.insert_submap(sm)
+        sync()
+        ins_times.append(time.perf_counter() - t0)
+        if (k + 1) % interval == 0 or k == n_submaps - 1:
+            t1 = time.perf_counter()
+            gm.optimize()
+            opt_times.append(time.perf_counter() - t1)
+        if (k + 1) in checkpoints or k == n_submaps - 1:
+            rows.append(dict(
+                submaps=k + 1, factors=len(gm.f_i), loops=gm.num_loops,
+                insert_mean_ms=1e3 * float(np.mean(ins_times)),
+                optimize_mean_ms=1e3 * float(np.mean(opt_times)) if opt_times else None,
+                optimize_last_ms=1e3 * opt_times[-1] if opt_times else None,
+                ate_rmse_m=_ate(gm.poses, n_submaps, radius)))
+            if not quiet:
+                print(json.dumps(rows[-1]))
+            ins_times, opt_times = [], []
+
+    # End of sequence: let the detection thread drain, then the final solve.
+    t0 = time.perf_counter()
+    gm.wait_for_detection(timeout=600.0)
+    drain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gm.optimize()
+    rows[-1].update(final_optimize_ms=1e3 * (time.perf_counter() - t0), detect_drain_s=drain_s,
+                    loops=gm.num_loops,
+                    ate_pre_closure_m=_ate(odom_inputs, n_submaps, radius),
+                    ate_post_closure_m=_ate(gm.poses, n_submaps, radius))
+    gm.stop()
+    if not quiet:
+        print(json.dumps({k: rows[-1][k] for k in (
+            "submaps", "loops", "ate_pre_closure_m", "ate_post_closure_m",
+            "final_optimize_ms", "detect_drain_s")}))
+    return rows, gm
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--interval", type=int, default=4)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default="matching", choices=("matching", "pose_graph"))
     ap.add_argument("--json", default=None, help="write the checkpoint rows to this file")
     args = ap.parse_args()
-    rows, _ = run(args.n, args.interval, device=args.device)
+    fn = run if args.backend == "matching" else run_pose_graph
+    rows, _ = fn(args.n, args.interval, device=args.device)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rows, f)

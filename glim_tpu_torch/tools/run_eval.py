@@ -14,11 +14,10 @@ card: name and power limit as nvidia-smi reports them). The JAX package's
 accuracy (``EVAL.md``) stands beside each row.
 
 ``--matrix`` sweeps the registry matrix (odometry x sub-mapping x global
-back-end) on a 12 s figure-8; a row whose module the port lacks (the
-pose-graph back-end) is written as "not ported: <module>", and any other
-exception propagates. ``--window-study`` runs the flagship odometry at four
-window sizes on an aggressive figure-8. The pipeline runs on the card
-unless ``--device cpu`` is given.
+back-end) on a 12 s figure-8, each row beside EVAL.md's.
+``--window-study`` runs the flagship odometry at four window sizes on an
+aggressive figure-8. The pipeline runs on the card unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -51,15 +50,26 @@ SEQUENCES = {
 EVAL_MD = {"circle_room": (0.0062, 0.0078), "figure8_room": (0.0138, 0.0144),
            "corridor": (0.0215, 0.0215), "aggressive": (0.0220, 0.0267),
            "city_loop": (0.0108, 0.0081)}
+# EVAL.md's registry matrix (odometry ATE, global ATE, m).
+EVAL_MD_MATRIX = {
+    "flagship / full / matching": (0.0179, 0.0174),
+    "flagship / full / pose_graph": (0.0179, 0.0179),
+    "flagship / passthrough / matching": (0.0179, 0.0172),
+    "flagship / passthrough / pose_graph": (0.0179, 0.0179),
+    "cpu_gicp / full / matching": (0.0194, 0.0191),
+    "cpu_gicp / full / pose_graph": (0.0194, 0.0194),
+    "cpu_gicp / passthrough / matching": (0.0194, 0.0187),
+    "cpu_gicp / passthrough / pose_graph": (0.0194, 0.0194),
+    "cpu_vgicp / full / matching": (0.0171, 0.0166),
+    "cpu_vgicp / full / pose_graph": (0.0171, 0.0171),
+    "cpu_vgicp / passthrough / matching": (0.0171, 0.0167),
+    "cpu_vgicp / passthrough / pose_graph": (0.0171, 0.0171),
+    "ct / full / matching": (0.0110, 0.0115),
+    "ct / full / pose_graph": (0.0110, 0.0110),
+    "ct / passthrough / matching": (0.0110, 0.0117),
+    "ct / passthrough / pose_graph": (0.0110, 0.0110),
+}
 IMU_BIAS = np.array([0.03, -0.02, 0.01, 0.002, -0.001, 0.001])
-
-
-class NotPorted(NotImplementedError):
-    """A registry-matrix row needs a module the port lacks."""
-
-    def __init__(self, module: str):
-        super().__init__(f"{module} is not ported to glim_tpu_torch")
-        self.module = module
 
 
 def _make_odometry(kind, odom_params, device):
@@ -93,12 +103,12 @@ def run_sequence(seq, odom_params=None, downsample=10000, pose_graph=False,
 
     from glim_tpu_torch.io.evaluation import evaluate_trajectory
     from glim_tpu_torch.mapping.global_mapping import GlobalMapping, GlobalMappingParams
+    from glim_tpu_torch.mapping.global_mapping_pose_graph import (
+        GlobalMappingPoseGraph, GlobalMappingPoseGraphParams)
     from glim_tpu_torch.mapping.sub_mapping import SubMapping, SubMappingParams
     from glim_tpu_torch.preprocess.cloud_preprocessor import (CloudPreprocessor,
                                                               CloudPreprocessorParams)
 
-    if pose_graph:
-        raise NotPorted("global_mapping_pose_graph")
     device = torch.device(device)
     pp = CloudPreprocessor(CloudPreprocessorParams(
         random_downsample_target=downsample, downsample_resolution=0.25), device=device)
@@ -111,7 +121,11 @@ def run_sequence(seq, odom_params=None, downsample=10000, pose_graph=False,
     else:
         sub = SubMapping(SubMappingParams(max_num_keyframes=8, keyframe_update_min_points=256),
                          device=device)
-    gm = GlobalMapping(GlobalMappingParams(voxel_capacity=65536), device=device)
+    if pose_graph:
+        gm = GlobalMappingPoseGraph(GlobalMappingPoseGraphParams(
+            min_travel_dist=20.0, max_neighbor_dist=6.0), device=device)
+    else:
+        gm = GlobalMapping(GlobalMappingParams(voxel_capacity=65536), device=device)
 
     imu_idx = 0
     ests = []
@@ -143,7 +157,11 @@ def run_sequence(seq, odom_params=None, downsample=10000, pose_graph=False,
             sub.insert_frame(m)
     for sm in sub.submit_end_of_sequence():
         gm.insert_submap(sm)
+    if pose_graph:
+        gm.wait_for_detection()
     gm.optimize()
+    if pose_graph:
+        gm.stop()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - (t0 or time.perf_counter())
@@ -245,13 +263,8 @@ def main(argv=None):
             for sm in ("full", "passthrough"):
                 for gb in ("matching", "pose_graph"):
                     label = f"{od} / {sm} / {gb}"
-                    try:
-                        res = run_sequence(seq, odometry=od, sub_mapping=sm,
-                                           pose_graph=(gb == "pose_graph"), device=args.device)
-                    except NotPorted as e:
-                        matrix_rows.append((label, None, None, None, e.module))
-                        print(f"[matrix] {label}: not ported: {e.module}", flush=True)
-                        continue
+                    res = run_sequence(seq, odometry=od, sub_mapping=sm,
+                                       pose_graph=(gb == "pose_graph"), device=args.device)
                     matrix_rows.append((label,) + res)
                     m, gmet = res[0], res[1]
                     print(f"[matrix] {label}: ATE {m.ate_rmse:.4f}"
@@ -298,15 +311,14 @@ def write_report(path, args, duration, rows, matrix_rows, study_rows) -> None:
                     f"{sps:.2f} | {extra['n_submaps']} |\n")
         if matrix_rows:
             f.write("\n## Registry matrix (figure8_room, 12 s)\n\n")
-            f.write("| odometry / sub_mapping / global | ATE RMSE [m] | global ATE [m] | "
-                    "scans/s | submaps |\n|---|---|---|---|---|\n")
+            f.write("| odometry / sub_mapping / global | ATE RMSE [m] | EVAL.md ATE [m] | "
+                    "global ATE [m] | EVAL.md global [m] | scans/s | submaps |\n"
+                    "|---|---|---|---|---|---|---|\n")
             for label, m, gmet, sps, extra in matrix_rows:
-                if m is None:
-                    f.write(f"| {label} | not ported: {extra} | - | - | - |\n")
-                    continue
+                ref = EVAL_MD_MATRIX.get(label, (float("nan"),) * 2)
                 gate = f"{gmet.ate_rmse:.4f}" if gmet else "-"
-                f.write(f"| {label} | {m.ate_rmse:.4f} | {gate} | {sps:.2f} | "
-                        f"{extra['n_submaps']} |\n")
+                f.write(f"| {label} | {m.ate_rmse:.4f} | {ref[0]:.4f} | {gate} | "
+                        f"{ref[1]:.4f} | {sps:.2f} | {extra['n_submaps']} |\n")
         if study_rows:
             f.write("\n## Drift against window size (aggressive figure-8)\n\n")
             f.write("| window | ATE RMSE [m] | scans/s |\n|---|---|---|\n")

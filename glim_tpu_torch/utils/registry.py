@@ -69,7 +69,8 @@ def _ensure_builtins_imported(kind: str) -> None:
                          "glim_tpu_torch.odometry.odometry_estimation_ct"],
             "sub_mapping": ["glim_tpu_torch.mapping.sub_mapping",
                             "glim_tpu_torch.mapping.sub_mapping_passthrough"],
-            "global_mapping": ["glim_tpu_torch.mapping.global_mapping"]}
+            "global_mapping": ["glim_tpu_torch.mapping.global_mapping",
+                               "glim_tpu_torch.mapping.global_mapping_pose_graph"]}
     for m in mods.get(kind, []):
         importlib.import_module(m)
 

@@ -3,10 +3,11 @@
 One short raycast sequence (2 s, 16 channels x 256 azimuth steps, made from
 a seed) goes through both packages' ``run_sequence`` (the flagship
 odometry, sub-mapping and the matching-cost global mapping) and the
-odometry ATE must agree within 10% or 2 mm. The registry matrix writes a
-pose-graph row as "not ported: global_mapping_pose_graph" and lets any
-other exception through; the report goes to its own file, headed by the
-device. ``evaluate`` gives the JAX tool's numbers on the same TUM files.
+odometry ATE must agree within 10% or 2 mm; the pose-graph back-end's row
+runs on the same sequence. The registry matrix runs all 16 rows, each
+beside EVAL.md's, and lets any exception through; the report goes to its
+own file, headed by the device. ``evaluate`` gives the JAX tool's numbers on
+the same TUM files.
 """
 
 import json
@@ -52,35 +53,39 @@ def test_run_sequence_matches_jax():
     assert abs(m_t.ate_rmse - m_j.ate_rmse) <= max(ATE_REL * m_j.ate_rmse, ATE_ABS), \
         (m_t.ate_rmse, m_j.ate_rmse)
     assert extra["n_submaps"] == extra_j["n_submaps"] >= 1 and sps > 0
+    # The pose-graph row: the same odometry, the pose-graph back-end's map.
+    m_p, g_p, _, extra_p = t_run_eval.run_sequence(seq, downsample=2000, pose_graph=True,
+                                                   device="cpu")
+    assert m_p.n_poses == m_t.n_poses and extra_p["n_submaps"] == extra["n_submaps"]
+    assert abs(m_p.ate_rmse - m_t.ate_rmse) <= ATE_ABS
+    assert g_p is not None and np.isfinite(g_p.ate_rmse) and g_p.ate_rmse < 0.1
 
 
 def test_matrix_rows_and_report(tmp_path, monkeypatch):
-    """--matrix on a stubbed run_sequence: pose-graph rows become "not
-    ported" (run_sequence itself raises NotPorted for them), every other
-    row is run, and a fault in a row propagates."""
-    with pytest.raises(t_run_eval.NotPorted, match="global_mapping_pose_graph"):
-        t_run_eval.run_sequence(None, pose_graph=True, device="cpu")
-
+    """--matrix on a stubbed run_sequence: all 16 rows run (the pose-graph
+    rows too), each beside EVAL.md's row, and a fault in a row
+    propagates."""
     seq = t_synthetic.generate_raycast_sequence(**SEQ)
     m = evaluate_trajectory(seq.gt_poses, seq.gt_poses)
     calls = []
 
     def fake(seq, odom_params=None, pose_graph=False, odometry="flagship",
              sub_mapping="full", device="cuda"):
-        if pose_graph:
-            raise t_run_eval.NotPorted("global_mapping_pose_graph")
-        calls.append((odometry, sub_mapping))
-        return m, None, 1.0, dict(n_submaps=2, n_scans=len(seq.scans))
+        calls.append((odometry, sub_mapping, pose_graph))
+        return m, m, 1.0, dict(n_submaps=2, n_scans=len(seq.scans))
 
     monkeypatch.setattr(t_run_eval, "run_sequence", fake)
     out = tmp_path / "EVAL_TORCH.md"
     res = t_run_eval.main(["--device", "cpu", "--quick", "--matrix", "--sequences",
                            "figure8_room", "--out", str(out), "--channels", "16",
                            "--azimuth", "256"])
-    assert len(calls) == 1 + 8 and len(res["matrix"]) == 16
+    assert len(calls) == 1 + 16 and len(res["matrix"]) == 16
+    assert sum(pg for _, _, pg in calls) == 8
     text = out.read_text()
-    assert text.count("not ported: global_mapping_pose_graph") == 8
+    assert "not ported" not in text
     assert "host CPU" in text and "| figure8_room |" in text and "0.0138" in text
+    assert text.count(" / pose_graph |") == 8
+    assert "| flagship / full / pose_graph | 0.0000 | 0.0179 | 0.0000 | 0.0179 |" in text
 
     def broken(*a, **k):
         raise ValueError("a fault in the pipeline")

@@ -50,6 +50,29 @@ def test_synthetic_run_writes_a_dump_jax_reads(tmp_path):
                                       s_t.frame.points.numpy()[mask])
 
 
+def test_pose_graph_run_writes_a_dump_jax_reads(tmp_path):
+    """The runner on the pose-graph configuration (the registry loads
+    libglobal_mapping_pose_graph.so in the async pipeline): its dump's
+    between factors, with their (6,) information rows and Huber widths,
+    read back by the JAX package."""
+    import chip_smoke
+    from glim_tpu.io.dump import load_dump as j_load_dump
+    from glim_tpu_torch.tools import glim_runner
+
+    dump = str(tmp_path / "dump")
+    run = glim_runner.main(["--synthetic", "2.0", "--device", "cpu", "--dump", dump, "--config",
+                            chip_smoke.config_dir(chip_smoke.POSE_GRAPH_EDITS
+                                                  + SMALL_DEFAULT_OVERRIDES)])
+    gm = run["glim"].global_backend
+    assert type(gm).__name__ == "GlobalMappingPoseGraph" and gm.detector is None
+    assert len(gm.submaps) >= 2 and len(gm.f_i) >= len(gm.submaps) - 1
+    submaps, poses, factors = j_load_dump(dump)
+    assert [s.id for s in submaps] == [s.id for s in gm.submaps]
+    np.testing.assert_array_equal(np.stack(poses), np.stack(gm.poses))
+    assert list(factors["i"]) == gm.f_i and list(factors["j"]) == gm.f_j
+    np.testing.assert_array_equal(factors["huber"], gm.f_huber)
+
+
 def test_dataset_directory_round_trip(tmp_path):
     """save_dataset writes what both packages' load_dataset read back
     exactly."""

@@ -139,14 +139,17 @@ def test_import_isolation():
             "glim_tpu_torch.odometry.odometry_estimation_cpu, "
             "glim_tpu_torch.odometry.odometry_estimation_cpu_imu, "
             "glim_tpu_torch.mapping.sub_mapping_passthrough, glim_tpu_torch.tools.run_eval, "
-            "glim_tpu_torch.tools.evaluate, chip_smoke; "
+            "glim_tpu_torch.tools.evaluate, glim_tpu_torch.mapping.submap_refine, "
+            "glim_tpu_torch.mapping.global_mapping_pose_graph, glim_tpu_torch.ops.registration, "
+            "chip_smoke; "
             "from glim_tpu_torch.utils.registry import available_modules; "
             "assert {'odometry_estimation_gpu', 'odometry_estimation_cpu', "
             "'odometry_estimation_ct', 'odometry_estimation_lidar_only'} "
             "<= set(available_modules('odometry')); "
             "assert {'sub_mapping', 'sub_mapping_passthrough'} "
             "<= set(available_modules('sub_mapping')); "
-            "assert 'global_mapping' in available_modules('global_mapping'); "
+            "assert {'global_mapping', 'global_mapping_pose_graph'} "
+            "<= set(available_modules('global_mapping')); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'glim_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -184,33 +187,38 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_unported_configurations_raise(tmp_path):
-    """Each configuration the port lacks raises, naming itself; the shipped
-    CT, pass-through and frame-to-model configurations build."""
+    """No shipped configuration raises: the pose-graph back-end and
+    sub-mapping's enable_optimization and create_between_factors each build
+    and run 10 scans at a tiny size, the pose graph in both pipeline modes,
+    the options asynchronously (tests/test_torch_pose_graph_slice.py runs
+    all three synchronously); the CT, pass-through and frame-to-model
+    configurations and the default one build."""
+    import chip_smoke
+    from torch_parity import SMALL_DEFAULT_OVERRIDES
+
+    from glim_tpu_torch.io.synthetic import generate_sequence
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.utils.config import create_default_config_dir
 
     cfg = create_default_config_dir(str(tmp_path / "default"))
-    for logical, module, name, value, match in (
-            ("config", "global", "config_global_mapping", "config_global_mapping_pose_graph.json",
-             "libglobal_mapping_pose_graph.so"),
-            ("config_sub_mapping", "sub_mapping", "enable_optimization", True,
-             "enable_optimization"),
-            ("config_sub_mapping", "sub_mapping", "create_between_factors", True,
-             "create_between_factors")):
-        path = os.path.join(cfg, f"{logical}.json")
-        if logical == "config_sub_mapping":
-            path = os.path.join(cfg, "config_sub_mapping_gpu.json")
-        with open(path) as f:
-            data = json.load(f)
-        before = data[module][name]
-        data[module][name] = value
-        with open(path, "w") as f:
-            json.dump(data, f)
-        with pytest.raises(NotImplementedError, match=match):
-            GlimTorch(cfg, device="cpu")
-        data[module][name] = before
-        with open(path, "w") as f:
-            json.dump(data, f)
+    seq = generate_sequence(duration=1.0, n_scan_points=1500, scene_points=20000, seed=53)
+    for module, name, value in (
+            ("global", "config_global_mapping", "config_global_mapping_pose_graph.json"),
+            ("sub_mapping", "enable_optimization", True),
+            ("sub_mapping", "create_between_factors", True)):
+        logical = "config" if module == "global" else "config_sub_mapping"
+        edited = chip_smoke.config_dir([(logical, module, name, value)])
+        for async_mode in (True, False) if module == "global" else (True,):
+            glim = GlimTorch(edited, async_mode=async_mode, device="cpu",
+                             overrides=SMALL_DEFAULT_OVERRIDES)
+            chip_smoke._feed(glim, seq)
+            glim.wait()
+            gm = type(glim.global_backend).__name__
+            assert gm == ("GlobalMappingPoseGraph" if module == "global" else "GlobalMapping")
+            sub = glim.sub_mapping.sub_mapping if async_mode else glim.sub_mapping
+            if module == "sub_mapping":
+                assert getattr(sub.params, name) is True
+            assert len(glim.odometry_estimates) >= 6 and len(glim.submaps) >= 1
     for overrides, names in (
             ([("config", "global", "config_odometry", "config_odometry_ct.json")],
              ("OdometryEstimationCT", "SubMapping")),
@@ -222,7 +230,6 @@ def test_unported_configurations_raise(tmp_path):
             ([("config", "global", "config_odometry", "config_odometry_cpu.json"),
               ("config_odometry", "odometry_estimation", "enable_imu", False)],
              ("OdometryEstimationCPU", "SubMapping"))):
-        import chip_smoke
         glim = GlimTorch(chip_smoke.config_dir(overrides), async_mode=False, device="cpu")
         assert (type(glim.odometry).__name__, type(glim.sub_mapping).__name__) == names
     glim = GlimTorch(cfg, device="cpu")        # the default configuration builds

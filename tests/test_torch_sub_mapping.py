@@ -178,6 +178,18 @@ def test_sub_mapping_on_cuda(tmp_path, cuda):
 
 
 @pytest.mark.parametrize("option", ["enable_optimization", "create_between_factors"])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match=option):
-        TSubMapping(TParams(**{option: True}), device="cpu")
+def test_unported_options_raise(option, tmp_path):
+    """Neither option raises: each runs the harness's frames; the refinement
+    (tests/test_torch_submap_refine.py holds it against JAX) refines every
+    submap, the between factors compute one GICP information a frame but
+    each submap's first."""
+    p = _params(TParams, tmp_path)
+    setattr(p, option, True)
+    sm = TSubMapping(p, device="cpu")
+    submaps, _ = _run(tt, sm, TCB, _frame_data())
+    assert len(submaps) >= 2 and sum(len(s.frames) for s in submaps) == len(X)
+    if option == "enable_optimization":
+        assert sm.refinements == len(submaps) and sm.between_infos == 0
+    else:
+        assert sm.refinements == 0
+        assert sm.between_infos == len(X) - len(submaps)
