@@ -4,6 +4,7 @@
     python3 chip_smoke.py --nn-v1 SRC       # ... with phase 3's A/B against SRC
     python3 chip_smoke.py --profile [DIR]   # profiles of three configurations
     python3 chip_smoke.py --eval [OUT]      # the port's full run_eval to OUT
+    python3 chip_smoke.py --loop-submaps OUT.npz   # ... saving phase 11b's submap clouds
 
 Phases (any failure exits non-zero):
   1. print the card (name and power limit as nvidia-smi reports them) and
@@ -16,11 +17,12 @@ Phases (any failure exits non-zero):
      queries against its 65536-point model, ~30% masked; sub-mapping's
      between information, Q = N = 16384 with ~39% of each side masked; the
      pose graph's inlier fraction, Q = N = 10923 with ~24% masked, and its
-     ring, Q = N = 2048), a ragged case, the duplicate-target cases (the
+     ring, Q = N = 2048; the manual loop closure's align, Q = N = 65536,
+     the default submaps' capacity, all valid), a ragged case, the duplicate-target cases (the
      lowest index must win: across the split boundary that the launch
      geometry picks at each caller's shape, and inside one thread's
      register-tiled query rows) and a Q=4096 set with one valid target;
-  3. time kernel and plain version at the callers' seven shapes with CUDA
+  3. time kernel and plain version at the callers' eight shapes with CUDA
      events, in turns (plain, kernel, kernel, plain), each beside its bound
      (valid pairs x 8 flops over the FP32 peak; bytes over the memory rate)
      and its share of it, then the host time to enqueue a call (and, at
@@ -109,7 +111,26 @@ Phases (any failure exits non-zero):
      and the exact nn_search count (one a between information, one a
      registration), and prints scans/s, refinement ms and host syncs a
      submap, loops and peak memory;
-  10. print the kernel summary JSON and, last, the device JSON.
+  11. the extension surface, async, at full width: (a) phase 5's run with
+     gnss_global (1 Hz fixes of the ground truth in an ENU frame at a yaw
+     of 0.7 rad and an offset of (100, -50, 2) m, N(0, 0.05^2) noise),
+     velocity_suppressor, imu_validator, memory_monitor and
+     standard_viewer (streaming to a file named in config_viewer): the
+     alignment, one translation prior in the graph a prior sent, velocity
+     regulation set once, the card's memory read, every stream line under
+     the JAX schema, ok() throughout, phase 5's bounds; (b) phase 9's
+     configuration and circle with the ScanContext and image loop
+     detectors (one image a scan from a bank keyed by the heading): every
+     loop request serviced, phase 9's bounds and the exact nn_search count
+     (the detectors' candidates are registrations), each detector's device
+     ms a submap; (c) the runner over phase 5's first LIVE_SCANS scans with
+     --viewer-stream and --commands, a helper thread appending pause,
+     loop_close, bundle_adjust, factors, status, set_enabled, step and
+     resume once the stream's factor layer shows three submaps in the
+     graph: each result, the between
+     factors in the graph, align's exact nn_search count (sum over its
+     three LM passes of 1 + trial steps, + 2), the dump loaded back;
+  12. print the kernel summary JSON and, last, the device JSON.
 
 ``--profile`` runs phase 5's configuration for 100 scans: host-clock time
 over scans 60-79 (the 48-state window is full and sub-mapping busy from
@@ -129,7 +150,8 @@ window study) on the card and writes it to OUT (default
 build/EVAL_TORCH.md); it is not part of the default smoke.
 
 ``run_slice``, ``run_default``, ``run_ring``, ``run_pose_graph_ring``,
-``run_async_default``, ``run_shipped`` and ``run_pose_graph_config`` are
+``run_async_default``, ``run_shipped``, ``run_pose_graph_config``,
+``run_extensions``, ``run_loop_detectors`` and ``run_live_corrections`` are
 importable and run on any device (the CPU tests rehearse them at a tiny
 size); ``main`` requires a CUDA device.
 """
@@ -138,6 +160,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -457,7 +480,7 @@ def config_dir(overrides=None, prefix: str = "glim_smoke_") -> str:
         path = os.path.join(cfg_dir, files.get(logical, logical + ".json"))
         with open(path) as f:
             cfg = json.load(f)
-        cfg[module][name] = value
+        cfg.setdefault(module, {})[name] = value
         with open(path, "w") as f:
             json.dump(cfg, f, indent=2)
     return cfg_dir
@@ -1009,6 +1032,579 @@ def _print_pose_graph_config(res: dict, card: str) -> None:
           + (f"{mem / 2**20:.1f} MiB" if mem is not None else "not measured"))
 
 
+# Phase 11: the extension modules, the headless viewer and live corrections.
+EXT_DEFAULT = ["libgnss_global.so", "libvelocity_suppressor.so", "libimu_validator.so",
+               "libmemory_monitor.so", "libstandard_viewer.so"]
+EXT_LOOPS = ["libscan_context_loop_detector.so", "libdbow_loop_detector.so"]
+GNSS_YAW = 0.7                        # rad, the ENU frame against the map frame
+GNSS_OFFSET = (100.0, -50.0, 2.0)     # m
+GNSS_STD = 0.05                       # m, the fixes' noise and their stated std
+IMAGE_BINS = 12                       # the image bank's heading bins on the circle
+IMAGES_KEPT = 4096                    # image_loop's buffer: every image of the run
+# 11b's gate: the JAX package's detectors, run on the CPU over the submap
+# clouds and middle stamps of the first card run of 11b (and every image),
+# fired the image detector on one pair and ScanContext on none; the port
+# must fire on the same pairs whenever its submaps have those stamps.
+LOOP_JAX_STAMPS = (1.7, 3.2, 4.7, 6.2, 7.7, 9.2, 10.7, 11.7)
+LOOP_JAX_IMAGE_PAIRS = [(0, 7)]
+LOOP_JAX_SC_PAIRS = []
+EXT_SCANS = 100                       # 11a: phase 5's sequence cut from 150 scans
+# 11c: the default configuration frames reach sub-mapping ~50 scans late
+# (smoother_lag 5 s), so the third submap reaches the global back-end only
+# after ~105 scans; 80 would end the feed before the stream reports three.
+LIVE_SCANS = 120
+LIVE_TRIGGER_SUBMAPS = 3
+STREAM_STATS = ("frames", "keyframes", "submaps", "mb")
+
+
+def stream_schema_errors(path: str) -> list:
+    """Each line of a viewer stream against the JAX package's line schema
+    (glim_tpu/viewer/stream_writer.py): the errors found, [] if none."""
+    errors = []
+
+    def pose_rows(v):
+        return isinstance(v, list) and all(
+            isinstance(r, list) and len(r) == 7 and all(isinstance(x, (int, float)) for x in r)
+            for r in v)
+
+    def point_rows(v):
+        return isinstance(v, list) and all(
+            isinstance(r, list) and len(r) == 3 and all(isinstance(x, (int, float)) for x in r)
+            for r in v)
+
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for n, line in enumerate(lines):
+        try:
+            d = json.loads(line)
+        except ValueError as e:
+            errors.append(f"line {n}: {e}")
+            continue
+        keys = set(d)
+        if not {"t", "seq", "odom", "submaps", "stats"} <= keys \
+                or not keys <= {"t", "seq", "odom", "submaps", "stats", "scan", "clouds",
+                                "factors"}:
+            errors.append(f"line {n}: keys {sorted(keys)}")
+        elif not (isinstance(d["t"], (int, float)) and d["seq"] == n and pose_rows(d["odom"])
+                  and pose_rows(d["submaps"]) and isinstance(d["stats"], dict)
+                  and set(d["stats"]) == set(STREAM_STATS)
+                  and point_rows(d.get("scan", []))
+                  and all(isinstance(k, str) and point_rows(v)
+                          for k, v in d.get("clouds", {}).items())
+                  and all(isinstance(r, list) and len(r) == 3 and isinstance(r[0], int)
+                          and isinstance(r[1], int) and r[2] in ("m", "b")
+                          for r in d.get("factors", []))):
+            errors.append(f"line {n}: a value off the schema")
+    return errors
+
+
+def gnss_fixes(seq, seed: int = 0) -> list:
+    """1 Hz ENU fixes of the ground truth: ENU = Rz(GNSS_YAW) p + GNSS_OFFSET
+    + N(0, GNSS_STD^2) per axis, from a generator seeded with ``seed``. The
+    last scan has one, so that every submap's stamp lies between two fixes
+    (past the last one, gnss_global would reuse it for up to a second)."""
+    rng = np.random.default_rng(seed)
+    c, s = np.cos(GNSS_YAW), np.sin(GNSS_YAW)
+    R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    n = len(seq.scans)
+    return [(seq.scans[k].stamp, R @ seq.gt_poses[k][:3, 3] + np.asarray(GNSS_OFFSET)
+             + rng.normal(0.0, GNSS_STD, 3)) for k in range((n - 1) % 10, n, 10)]
+
+
+def run_extensions(device, n_scans: int = EXT_SCANS, n_scan_points: int = 65536,
+                   scene_points: int = 400000, seed: int = 0, overrides=None,
+                   config_edits=(), work_dir=None) -> dict:
+    """Phase 11a: phase 5's sequence through GlimTorch (async) with the five
+    extensions of EXT_DEFAULT, the standard viewer streaming to a file named
+    in config_viewer and 1 Hz GNSS fixes (gnss_fixes) handed to the loaded
+    gnss_global; returns phase 5's metrics with the extensions' counts.
+    ``config_edits`` are config_dir edits (the CPU rehearsal's shorter GNSS
+    baseline)."""
+    from glim_tpu_torch.pipeline import GlimTorch
+
+    _release_pipelines()
+    dev = torch.device(device)
+    seq = _sequence(n_scans, n_scan_points, scene_points, seed)
+    tmp = tempfile.mkdtemp(prefix="glim_smoke_ext_", dir=work_dir)
+    try:
+        stream = os.path.join(tmp, "stream.jsonl")
+        cfg = config_dir([("config_viewer", "standard_viewer", "stream_path", stream)]
+                         + list(config_edits), "glim_smoke_ext_cfg_")
+        glim = GlimTorch(cfg, extension_modules=EXT_DEFAULT, device=dev, overrides=overrides)
+        ext = {type(e).__name__: e for e in glim.extensions}
+        gnss, viewer, monitor = ext["GNSSGlobal"], ext["StandardViewer"], ext["MemoryMonitor"]
+        odom = _odometry(glim)
+        vel_calls = []
+        setter = odom.set_velocity_regulation
+        odom.set_velocity_regulation = lambda *a: (vel_calls.append(a), setter(*a))
+        fixes = gnss_fixes(seq, seed)
+        state = dict(fix=0, ok=True)
+
+        def on_scan(i):
+            state["ok"] &= glim.ok()
+            while state["fix"] < len(fixes) and fixes[state["fix"]][0] <= seq.scans[i].stamp:
+                gnss.insert_gnss(*fixes[state["fix"]], GNSS_STD)
+                state["fix"] += 1
+
+        res = _timed_run(glim, seq, dev, on_scan)
+        state["ok"] &= glim.ok()
+        dump = os.path.join(tmp, "dump")
+        glim.save(dump)                 # the extensions' at_exit: the stream closes
+        gm = glim.global_backend
+        with open(os.path.join(dump, "viewer_odom.txt")) as f:
+            viewer_rows = len(f.read().splitlines())
+        with open(stream) as f:
+            stream_lines = len(f.read().splitlines())
+        res.update(
+            extensions=sorted(ext), gnss_fixes=state["fix"], gnss_pairs=len(gnss.pairs),
+            gnss_aligned=gnss.T_map_enu is not None, priors_sent=gnss.priors_sent,
+            translation_priors=len(gm.translation_priors),
+            velocity_regulation_calls=vel_calls, velocity_applied=ext["VelocitySuppressor"].applied,
+            imu_frames_validated=ext["IMUValidatorExtension"].frames_validated,
+            imu_validator_device=str(ext["IMUValidatorExtension"].integration.device),
+            monitor_device_reads=monitor.device_reads,
+            monitor_last=monitor.last_device_stats, ok_throughout=state["ok"],
+            stream_lines=stream_lines, stream_errors=stream_schema_errors(stream),
+            viewer_frames=len(viewer.odom_poses), viewer_odom_rows=viewer_rows,
+            skipped_requests=glim.global_mapping.skipped_requests,
+            on_card=dev.type == "cuda")
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_extensions(res: dict) -> None:
+    """Phase 11a's failure conditions: the GNSS alignment and one
+    translation prior in the graph for each one sent, velocity regulation
+    set once, IMU validation running on the pipeline's device, the card's
+    memory read (on the card), a stream whose every line parses under the
+    JAX schema, every estimate in the viewer (and in its TUM export), ok()
+    throughout, and phase 5's bounds."""
+    name = "extensions"
+    if not (res["gnss_aligned"] and res["priors_sent"] >= 1
+            and res["translation_priors"] == res["priors_sent"]):
+        raise AssertionError(f"{name}: GNSS aligned {res['gnss_aligned']}, "
+                             f"{res['priors_sent']} priors sent, "
+                             f"{res['translation_priors']} in the graph")
+    if len(res["velocity_regulation_calls"]) != 1 or not res["velocity_applied"]:
+        raise AssertionError(f"{name}: velocity regulation set "
+                             f"{len(res['velocity_regulation_calls'])} times")
+    if res["imu_frames_validated"] < 1:
+        raise AssertionError(f"{name}: the IMU validator validated no frame")
+    if res["on_card"] != res["imu_validator_device"].startswith("cuda"):
+        raise AssertionError(f"{name}: the IMU validator dead-reckons on "
+                             f"{res['imu_validator_device']}, not the pipeline's device")
+    if res["on_card"] and res["monitor_device_reads"] < 1:
+        raise AssertionError(f"{name}: the memory monitor never read the card")
+    if res["stream_lines"] < 1 or res["stream_errors"]:
+        raise AssertionError(f"{name}: {res['stream_lines']} stream lines, off the schema: "
+                             f"{res['stream_errors'][:5]}")
+    if res["viewer_frames"] < res["estimates"] or res["viewer_odom_rows"] != res["viewer_frames"]:
+        raise AssertionError(f"{name}: the viewer holds {res['viewer_frames']} frames "
+                             f"({res['viewer_odom_rows']} rows), {res['estimates']} estimates")
+    if not res["ok_throughout"]:
+        raise AssertionError(f"{name}: ok() went false")
+    if not res["poses_finite"] or not res["ate"] < DEFAULT_ATE_BOUND:
+        raise AssertionError(f"{name}: ATE {res['ate']:.4f} m >= {DEFAULT_ATE_BOUND} m "
+                             "or non-finite poses")
+    if res["submap_ate"] is None or not res["submap_ate"] < SUBMAP_ATE_BOUND:
+        raise AssertionError(f"{name}: submap-origin ATE {res['submap_ate']} m, want under "
+                             f"{SUBMAP_ATE_BOUND} m")
+
+
+def _print_extensions(res: dict, phase5: dict, card: str) -> None:
+    print("extensions: " + json.dumps(res))
+    mem = res["max_memory_allocated"]
+    print(f"extensions [{card}]: {res['scans']} scans in {res['seconds']:.2f} s = "
+          f"{res['scans_per_s']:.4f} scans/s async with {len(EXT_DEFAULT)} extensions "
+          f"(phase 5 sync in this call: {phase5['scans_per_s']:.4f}), ATE {res['ate']:.4f} m, "
+          f"submap-origin ATE {res['submap_ate']} m, {res['submaps']} submaps, GNSS "
+          f"{res['gnss_fixes']} fixes / {res['gnss_pairs']} pairs / {res['priors_sent']} "
+          f"priors sent = {res['translation_priors']} in the graph, velocity regulation set "
+          f"{len(res['velocity_regulation_calls'])}x, {res['imu_frames_validated']} frames "
+          f"IMU-validated, {res['monitor_device_reads']} card memory reads (last "
+          f"{res['monitor_last']}), {res['stream_lines']} stream lines, max memory "
+          + (f"{mem / 2**20:.1f} MiB" if mem is not None else "not measured"))
+
+
+def _same_stamps(a, b) -> bool:
+    return len(a) == len(b) and bool(np.allclose(a, b, atol=1e-6))
+
+
+def scene_image(rng) -> np.ndarray:
+    """A textured 'place' image, 120 x 160: gradients and random blobs (the
+    recipe of the JAX package's image-loop tests)."""
+    y, x = np.mgrid[0:120, 0:160].astype(np.float32)
+    img = 40 + 20 * np.sin(x / rng.uniform(8, 30)) + 20 * np.cos(y / rng.uniform(8, 30))
+    for _ in range(8):
+        cy, cx = rng.uniform(10, 110), rng.uniform(10, 150)
+        r = rng.uniform(5, 25)
+        img += rng.uniform(40, 120) * np.exp(-((y - cy) ** 2 + (x - cx) ** 2) / (2 * r * r))
+    return np.clip(img, 0, 255)
+
+
+def heading_images(seq, seed: int = 0, noise: float = 4.0) -> list:
+    """One camera image a scan: the bank image of the scan's ground-truth
+    heading bin (IMAGE_BINS bins), with N(0, noise^2) pixel noise; a
+    revisit of a heading sees the same place."""
+    rng = np.random.default_rng(seed)
+    bank = [scene_image(rng) for _ in range(IMAGE_BINS)]
+    out = []
+    for k in range(len(seq.scans)):
+        R = seq.gt_poses[k][:3, :3]
+        yaw = np.arctan2(R[1, 0], R[0, 0]) % (2 * np.pi)
+        b = int(yaw / (2 * np.pi) * IMAGE_BINS) % IMAGE_BINS
+        out.append(np.clip(bank[b] + rng.normal(0.0, noise, bank[b].shape), 0, 255))
+    return out
+
+
+def _device_ms(calls) -> float:
+    """Summed device time (ms) of the CUDA kernels and copies that the
+    thunks in ``calls`` launch, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name not in SPANS) / 1e3
+
+
+def run_loop_detectors(device, n_scans: int = POSE_GRAPH_SCANS, n_scan_points: int = 65536,
+                       scene_points: int = 400000, seed: int = 0,
+                       radius: float = POSE_GRAPH_RADIUS, omega: float = POSE_GRAPH_OMEGA,
+                       overrides=None) -> dict:
+    """Phase 11b: phase 9's configuration and circle through GlimTorch
+    (async) with the ScanContext and image loop detectors, one image a scan
+    (heading_images); returns phase 9's metrics with the detectors'
+    matches, the loop requests fired and serviced, each detector's device
+    ms a submap (its work replayed over the run's submaps under the
+    profiler, on the card) and the submaps' clouds for an offline check."""
+    from glim_tpu_torch.ext.image_loop import ImageLoopDetector
+    from glim_tpu_torch.ext.scan_context import ScanContextLoopDetector
+    from glim_tpu_torch.io.synthetic import generate_sequence
+    from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks, SubMappingCallbacks
+    from glim_tpu_torch.pipeline import GlimTorch
+    from glim_tpu_torch.types import to_numpy
+
+    _release_pipelines()
+    dev = torch.device(device)
+    seq = generate_sequence(duration=n_scans / 10.0, scan_hz=10.0, imu_hz=200.0,
+                            n_scan_points=n_scan_points, scene_points=scene_points,
+                            noise=0.01, seed=seed, radius=radius, omega=omega)
+    images = heading_images(seq, seed)
+    glim = GlimTorch(config_dir(POSE_GRAPH_EDITS + [("config", "image_loop", "image_buffer",
+                                                     IMAGES_KEPT)], "glim_smoke_loops_"),
+                     device=dev, extension_modules=EXT_LOOPS, overrides=overrides)
+    sc, il = glim.extensions
+    sub, gm = glim.sub_mapping.sub_mapping, glim.global_backend
+    to_sub, fired, serviced = [], [], []
+    SubMappingCallbacks.on_insert_frame.add(lambda f: to_sub.append(f.id))
+    GlobalMappingCallbacks.request_to_add_loop.add(lambda t, s: fired.append((t, s)))
+    add_candidate = gm.add_loop_candidate
+
+    def counted_candidate(tgt, src, *a):
+        serviced.append((tgt, src))
+        return add_candidate(tgt, src, *a)
+    gm.add_loop_candidate = counted_candidate
+    res = _timed_run(glim, seq, dev,
+                     lambda i: glim.insert_image(seq.scans[i].stamp, images[i]))
+    subs = glim.submaps
+    res.update(
+        name="loop_detectors", loops=gm.num_loops, registrations=gm.registrations,
+        global_registrations=gm.global_registrations, between_infos=sub.between_infos,
+        refinements=sub.refinements,
+        expected_launches=(expected_launches(_odometry(glim), 0) + sub.between_infos
+                           + gm.nn_search_calls()),
+        sc_matches=[(sc.submap_ids[t], sc.submap_ids[s], d) for t, s, d in sc.matches],
+        image_matches=[(il.submap_ids[t], il.submap_ids[s], v) for t, s, v in il.matches],
+        loop_requests=fired, loop_requests_serviced=serviced,
+        submap_frames_total=sum(len(s.frames) for s in subs),
+        frames_to_sub_mapping=len(to_sub),
+        submap_stamps=[float(s.frames[len(s.frames) // 2].stamp) for s in subs])
+    res["jax_gate"] = _same_stamps(res["submap_stamps"], LOOP_JAX_STAMPS)
+    res["submap_clouds"] = [(to_numpy(s.frame.points), to_numpy(s.frame.mask)) for s in subs]
+    res["sc_ms_per_submap"] = res["image_ms_per_submap"] = None
+    if dev.type == "cuda":
+        # Each detector's work replayed over the run's submaps, the card
+        # otherwise idle: detached copies (their loop requests go nowhere).
+        _release_pipelines()
+        sc2 = ScanContextLoopDetector()
+        il2 = ImageLoopDetector(image_buffer=len(images), device=dev)
+        sc2.detach()
+        il2.detach()
+        for i, img in enumerate(images):
+            il2._on_image(seq.scans[i].stamp, img)
+        res["sc_ms_per_submap"] = _device_ms([lambda s=s: sc2._on_new_submap(s)
+                                              for s in subs]) / len(subs)
+        res["image_ms_per_submap"] = _device_ms([lambda s=s: il2._on_new_submap(s)
+                                                 for s in subs]) / len(subs)
+    return res
+
+
+def check_loop_detectors(res: dict) -> None:
+    """Phase 11b's failure conditions: phase 9's bounds (finite poses, the
+    ATE bounds, every frame in a submap, an optimize), every loop request
+    serviced, the JAX detectors' pairs when the submaps have the stamps
+    they were run on, and on the card the exact nn_search count (the
+    extensions' candidates are registrations too)."""
+    name = "loop detectors"
+    if not (res["poses_finite"] and res["submap_origins_finite"]):
+        raise AssertionError(f"{name}: non-finite poses")
+    if not res["ate"] < DEFAULT_ATE_BOUND:
+        raise AssertionError(f"{name}: ATE {res['ate']:.4f} m >= {DEFAULT_ATE_BOUND} m")
+    if res["submaps"] < 2 or res["submap_frames_total"] != res["frames_to_sub_mapping"]:
+        raise AssertionError(f"{name}: {res['submaps']} submaps holding "
+                             f"{res['submap_frames_total']} frames, "
+                             f"{res['frames_to_sub_mapping']} reached sub-mapping")
+    if res["optimizes"] < 1:
+        raise AssertionError(f"{name}: no optimize")
+    if res["submap_ate"] is None or not res["submap_ate"] < SUBMAP_ATE_BOUND:
+        raise AssertionError(f"{name}: submap-origin ATE {res['submap_ate']} m")
+    if res["loop_requests_serviced"] != res["loop_requests"]:
+        raise AssertionError(f"{name}: loop requests {res['loop_requests']}, serviced "
+                             f"{res['loop_requests_serviced']}")
+    if res["jax_gate"] and (
+            [m[:2] for m in res["image_matches"]] != LOOP_JAX_IMAGE_PAIRS
+            or [m[:2] for m in res["sc_matches"]] != LOOP_JAX_SC_PAIRS):
+        raise AssertionError(f"{name}: matches {res['image_matches']} (image), "
+                             f"{res['sc_matches']} (ScanContext); the JAX detectors fired on "
+                             f"{LOOP_JAX_IMAGE_PAIRS} and {LOOP_JAX_SC_PAIRS}")
+    on_card = res["max_memory_allocated"] is not None
+    if on_card and res["kernel_launches"] != res["expected_launches"]:
+        raise AssertionError(
+            f"{name}: {res['kernel_launches']} nn_search launches, want "
+            f"{res['expected_launches']} ({res['between_infos']} between informations, "
+            f"{res['registrations']} registrations)")
+
+
+def _print_loop_detectors(res: dict, card: str) -> None:
+    print("loop_detectors: " + json.dumps({k: v for k, v in res.items()
+                                           if k != "submap_clouds"}))
+    print(f"loop_detectors [{card}]: {res['scans']} scans in {res['seconds']:.2f} s = "
+          f"{res['scans_per_s']:.4f} scans/s async, ATE {res['ate']:.4f} m, {res['submaps']} "
+          f"submaps, ScanContext matches {res['sc_matches']}, image matches "
+          f"{res['image_matches']}, {len(res['loop_requests'])} loop requests "
+          f"({len(res['loop_requests_serviced'])} serviced), {res['loops']} loops, "
+          f"{res['registrations']} registrations, {res['kernel_launches']} nn_search launches "
+          f"(want {res['expected_launches']} = {res['between_infos']} between informations + "
+          f"registrations), device ms a submap: ScanContext {res['sc_ms_per_submap']}, image "
+          f"{res['image_ms_per_submap']}, submap-origin ATE {res['submap_ate']} m")
+
+
+def _live_commands(stream: str, commands: str, done, written, timeout: float = 600.0) -> list:
+    """The helper thread of phase 11c: tail the viewer stream until its
+    factor layer shows the global back-end holding LIVE_TRIGGER_SUBMAPS
+    submaps (its submap list grows when sub-mapping closes one, before the
+    back-end inserts it), then append to the command file: pause,
+    loop_close of submaps 1 and 2, a bundle adjustment around a floor point
+    both see, factors, status, set_enabled loop_detection false, step,
+    resume, and set ``written``. Returns the commands written."""
+    clouds, pos, line, in_graph = {}, 0, None, 0
+    t_end = time.time() + timeout
+    while time.time() < t_end and not done.is_set():
+        with open(stream) as f:
+            f.seek(pos)
+            chunk = f.read()
+        complete = chunk[:chunk.rfind("\n") + 1]
+        pos += len(complete)
+        for text in complete.splitlines():
+            line = json.loads(text)
+            clouds.update(line.get("clouds", {}))
+            if line.get("factors"):
+                in_graph = 1 + max(max(i, j) for i, j, _ in line["factors"])
+        if in_graph >= LIVE_TRIGGER_SUBMAPS and len(line["submaps"]) >= LIVE_TRIGGER_SUBMAPS \
+                and {"1", "2"} <= set(clouds):
+            break
+        time.sleep(0.05)
+    else:
+        return []
+
+    def world(k):
+        from glim_tpu_torch.utils.config import tum_to_se3
+        T = tum_to_se3(line["submaps"][k])
+        return np.asarray(clouds[str(k)]) @ T[:3, :3].T + T[:3, 3]
+
+    w1, w2 = world(1), world(2)
+    both = np.concatenate([w1, w2])
+    floor = both[:, 2] < np.percentile(both[:, 2], 5) + 0.3
+    # The pick: a floor point and the smallest radius in which each streamed
+    # cloud (a subset of the submap's) has 30 points, none of them off the
+    # floor if possible (a wall or pillar inside makes the region no plane).
+    center, radius, fallback = None, None, None
+    for r in (2.0, 3.0, 4.0, 6.0, 8.0):
+        for c in both[floor]:
+            n = min(np.sum(np.linalg.norm(w - c, axis=1) < r) for w in (w1, w2))
+            if n < 30:
+                continue
+            if not np.any((np.linalg.norm(both - c, axis=1) < r + 0.5) & ~floor):
+                center, radius = c, r
+                break
+            fallback = fallback or (c, r)
+        if center is not None:
+            break
+    if center is None:
+        center, radius = fallback if fallback else (both[floor][0], 8.0)
+    cmds = [{"cmd": "pause"}, {"cmd": "loop_close", "target": 1, "source": 2},
+            {"cmd": "bundle_adjust", "center": [float(v) for v in center], "radius": radius,
+             "mode": "plane", "submaps": [1, 2]},
+            {"cmd": "factors"}, {"cmd": "status"},
+            {"cmd": "set_enabled", "target": "loop_detection", "value": False},
+            {"cmd": "step"}, {"cmd": "resume"}]
+    for cmd in cmds:
+        with open(commands, "a") as f:
+            f.write(json.dumps(cmd) + "\n")
+        # Let the poller take each line on its own (the feed is paused).
+        time.sleep(0.5 if cmd["cmd"] in ("pause", "step") else 0.05)
+    written.set()
+    return cmds
+
+
+def run_live_corrections(device, n_scans: int = LIVE_SCANS, n_scan_points: int = 65536,
+                         scene_points: int = 400000, seed: int = 0, overrides=None,
+                         work_dir=None) -> dict:
+    """Phase 11c: phase 5's sequence (first ``n_scans``) written as a dataset
+    directory and played by the port's runner with --viewer-stream and
+    --commands; a helper thread appends the live corrections
+    (_live_commands). Returns the commands' results, each align's LM trial
+    steps and nn_search launches, the graph's between factors and the dump
+    loaded back."""
+    import threading
+
+    from glim_tpu_torch.mapping.global_mapping import GlobalMapping
+    from glim_tpu_torch.ops.nn_search import nn_search
+    from glim_tpu_torch.tools import glim_runner
+    from glim_tpu_torch.viewer import interactive_tools
+
+    _release_pipelines()
+    dev = torch.device(device)
+    seq = _sequence(n_scans, n_scan_points, scene_points, seed)
+    tmp = tempfile.mkdtemp(prefix="glim_smoke_live_", dir=work_dir)
+    MLC = interactive_tools.ManualLoopClose
+    align = MLC.align
+    aligns = []
+
+    def counted_align(self, *a, **k):
+        n0 = nn_search.kernel_launches
+        t0 = time.perf_counter()
+        out = align(self, *a, **k)          # ends in a host read of its result
+        aligns.append(dict(trial_steps=list(out.lm_trial_steps),
+                           launches=nn_search.kernel_launches - n0,
+                           ms=1e3 * (time.perf_counter() - t0),
+                           inlier_fraction=out.inlier_fraction))
+        return out
+    try:
+        data, dump = os.path.join(tmp, "dataset"), os.path.join(tmp, "dump")
+        stream, commands = os.path.join(tmp, "stream.jsonl"), os.path.join(tmp, "commands.jsonl")
+        glim_runner.save_dataset(data, seq.imu, [(s.stamp, s.points, s.times)
+                                                 for s in seq.scans])
+        open(stream, "w").close()
+        done, ready = threading.Event(), threading.Event()
+        written = []
+        helper = threading.Thread(target=lambda: written.extend(
+            _live_commands(stream, commands, done, ready)), daemon=True)
+        helper.start()
+
+        def on_scan(i):
+            # The last scan waits for the commands (the workers go on
+            # draining meanwhile), so they are polled before the feed ends.
+            if i == n_scans - 1:
+                ready.wait(300.0)
+        MLC.align = counted_align
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        nn_search.kernel_launches = 0
+        t0 = time.perf_counter()
+        try:
+            run = glim_runner.main([data, "--dump", dump, "--device", str(dev),
+                                    "--config", config_dir(overrides, "glim_smoke_live_cfg_"),
+                                    "--viewer-stream", stream, "--commands", commands],
+                                   on_scan=on_scan)
+        finally:
+            MLC.align = align
+            done.set()
+        seconds = time.perf_counter() - t0
+        launches = nn_search.kernel_launches
+        helper.join(10.0)
+        gm = run["glim"].global_backend
+        fresh = GlobalMapping(gm.params, device=dev)
+        fresh.load(dump)
+        results = [(c.get("cmd"), out) for c, out in run["command_results"]]
+        return dict(
+            scans=run["scans"], seconds=seconds, scans_per_s=run["scans"] / seconds,
+            commands_written=[c["cmd"] for c in written], results=results, aligns=aligns,
+            kernel_launches=launches,
+            between_pairs=[(int(i), int(j)) for i, j, _, _ in gm.between_factors],
+            submap_capacity=int(gm.submaps[0].frame.points.shape[0]),
+            submap_valid=[int(s.frame.mask.sum()) for s in gm.submaps[:4]],
+            loop_search_enabled=gm.loop_search_enabled, submaps=len(gm.submaps),
+            loaded_submaps=len(fresh.submaps), loaded_between=len(fresh.between_factors),
+            stream_errors=stream_schema_errors(stream),
+            max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            on_card=dev.type == "cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_live_corrections(res: dict) -> None:
+    """Phase 11c's failure conditions: every command written came back with
+    the expected result, the loop closure's and the bundle adjustment's
+    between factors are in the graph, each align made exactly sum over its
+    passes of (1 + trial steps) + 2 nn_search launches and the run no other
+    (on the card), and the dump loads."""
+    name = "live corrections"
+    want = ["pause", "loop_close", "bundle_adjust", "factors", "status", "set_enabled",
+            "step", "resume"]
+    got = dict(res["results"])
+    if res["commands_written"] != want or [c for c, _ in res["results"]] != want:
+        raise AssertionError(f"{name}: commands written {res['commands_written']}, "
+                             f"answered {[c for c, _ in res['results']]}")
+    if not (got["loop_close"]["ok"] and got["bundle_adjust"]["ok"]
+            and got["bundle_adjust"]["thickness_after_m"]
+            <= got["bundle_adjust"]["thickness_before_m"]
+            and got["factors"]["ok"] and got["status"]["ok"] and got["status"]["live"]
+            and got["set_enabled"]["ok"] and not res["loop_search_enabled"]):
+        raise AssertionError(f"{name}: results {res['results']}")
+    controls = [out for c, out in res["results"] if c in ("pause", "step", "resume")]
+    if controls != [dict(paused=True, step=0), dict(paused=True, step=1),
+                    dict(paused=False, step=0)]:
+        raise AssertionError(f"{name}: playback controls {controls}")
+    ba_pairs = list(zip(got["bundle_adjust"]["submaps"], got["bundle_adjust"]["submaps"][1:]))
+    if (1, 2) not in res["between_pairs"] or not set(ba_pairs) <= set(res["between_pairs"]):
+        raise AssertionError(f"{name}: between factors {res['between_pairs']}")
+    if len(res["aligns"]) != 1:
+        raise AssertionError(f"{name}: {len(res['aligns'])} alignments")
+    for a in res["aligns"]:
+        expect = sum(1 + s for s in a["trial_steps"]) + 2
+        if res["on_card"] and a["launches"] != expect:
+            raise AssertionError(f"{name}: align made {a['launches']} nn_search launches, "
+                                 f"want {expect} (trial steps {a['trial_steps']})")
+    if res["on_card"] and res["kernel_launches"] != sum(a["launches"] for a in res["aligns"]):
+        raise AssertionError(f"{name}: {res['kernel_launches']} nn_search launches in the run")
+    if res["loaded_submaps"] != res["submaps"] or \
+            res["loaded_between"] != len(res["between_pairs"]) or res["stream_errors"]:
+        raise AssertionError(f"{name}: dump loaded {res['loaded_submaps']} submaps / "
+                             f"{res['loaded_between']} between factors; stream "
+                             f"{res['stream_errors'][:3]}")
+
+
+def _print_live_corrections(res: dict, card: str) -> None:
+    print("live: " + json.dumps(res))
+    a = res["aligns"][0] if res["aligns"] else {}
+    mem = res["max_memory_allocated"]
+    print(f"live [{card}]: {res['scans']} scans through the runner in {res['seconds']:.2f} s "
+          f"= {res['scans_per_s']:.4f} scans/s with --viewer-stream and --commands; align "
+          f"at Q = N = {res['submap_capacity']} ({res['submap_valid']} valid): "
+          f"{a.get('ms')} ms, LM trial steps {a.get('trial_steps')}, {a.get('launches')} "
+          f"nn_search launches, inlier fraction {a.get('inlier_fraction')}; between factors "
+          f"{res['between_pairs']}; {res['submaps']} submaps, dump loaded with "
+          f"{res['loaded_submaps']}; max memory "
+          + (f"{mem / 2**20:.1f} MiB" if mem is not None else "not measured"))
+
+
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -1024,6 +1620,7 @@ NN_CHECKS = (("main Q=16384 N=131072", 16384, 131072, 0.3, 0.05),
              ("sub-mapping between information Q=N=16384", 16384, 16384, 0.39, 0.39),
              ("pose-graph inlier fraction Q=N=10923", 10923, 10923, 0.24, 0.24),
              ("pose-graph ring Q=N=2048", 2048, 2048, 0.05, 0.05),
+             ("manual loop close Q=N=65536", 65536, 65536, 0.0, 0.0),
              ("ragged Q=1000 N=3001", 1000, 3001, 0.3, 0.05))
 
 
@@ -1240,7 +1837,8 @@ def nn_bound_ms(q, qm, t, tm):
 NN_SHAPES = ((16384, 131072, 0.3, 0.05, ""), (4096, 131072, 0.3, 0.05, "_q4096"),
              (4096, 4096, 0.05, 0.05, "_q4096_n4096"), (16384, 65536, 0.3, 0.05, "_n65536"),
              (16384, 16384, 0.39, 0.39, "_q16384_n16384"),
-             (10923, 10923, 0.24, 0.24, "_n10923"), (2048, 2048, 0.05, 0.05, "_n2048"))
+             (10923, 10923, 0.24, 0.24, "_n10923"), (2048, 2048, 0.05, 0.05, "_n2048"),
+             (65536, 65536, 0.0, 0.0, "_q65536_n65536"))
 
 
 def time_nn_search(card: str, v1_src=None) -> dict:
@@ -1822,7 +2420,23 @@ def main() -> int:
     _print_pose_graph_config(gres9, card)
     check_pose_graph_config(gres9)
 
-    # --- 10. summary ---
+    # --- 11. extensions, the headless viewer and live corrections (async) ---
+    xres = run_extensions("cuda")
+    _print_extensions(xres, dres, card)
+    check_extensions(xres)
+    lres = run_loop_detectors("cuda")
+    _print_loop_detectors(lres, card)
+    if "--loop-submaps" in args:
+        out = args[args.index("--loop-submaps") + 1]
+        np.savez_compressed(out, stamps=np.asarray(lres["submap_stamps"]),
+                            **{f"points_{i}": p for i, (p, _) in enumerate(lres["submap_clouds"])},
+                            **{f"mask_{i}": m for i, (_, m) in enumerate(lres["submap_clouds"])})
+    check_loop_detectors(lres)
+    cres = run_live_corrections("cuda")
+    _print_live_corrections(cres, card)
+    check_live_corrections(cres)
+
+    # --- 12. summary ---
     print(json.dumps({"kernels": [{
         "name": "nn_search", "route": "cuda",
         "source": "glim_tpu_torch/csrc/nn_search.cu",
@@ -1837,6 +2451,8 @@ def main() -> int:
         "launches_pose_graph": gres9["kernel_launches"],
         "launches_sub_mapping_between": gres9["between_infos"],
         "launches_pose_graph_registrations": gres9["kernel_launches"] - gres9["between_infos"],
+        "launches_manual_loop_close": cres["kernel_launches"],
+        "launches_extension_loops": lres["kernel_launches"],
         "max_abs_err": max_err, **timing}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

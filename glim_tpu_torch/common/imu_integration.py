@@ -64,3 +64,25 @@ class IMUIntegration:
                                    block_d[:, 7] > 0, bias_d, self.acc_noise,
                                    self.gyro_noise, self.int_noise)
         return pre, n
+
+    def integrate_imu_rate_poses(self, T0: np.ndarray, v0: np.ndarray, bias: np.ndarray,
+                                 t0: float, t1: float,
+                                 gravity=np.array([0.0, 0.0, -9.80665])):
+        """World poses after each sample in [t0, t1] (dead reckoning from
+        the state (T0, v0) with ``bias``), on ``device`` -> (stamps (K,),
+        Rs (K, 3, 3), ps (K, 3)), or None with fewer than 2 samples."""
+        rows = self.find_imu_data(t0, t1)
+        if len(rows) < 2:
+            return None
+        dts = np.diff(rows[:, 0], prepend=rows[0, 0])
+        T0 = np.asarray(T0)
+        state = np.concatenate([T0[:3, :3].reshape(-1), T0[:3, 3], np.asarray(v0),
+                                np.asarray(bias), np.asarray(gravity)])
+        dev_state = upload(state.astype(np.float32), self.device)
+        dev_rows = upload(np.concatenate([rows[:, 1:7], dts[:, None]], 1).astype(np.float32),
+                          self.device)
+        Rs, ps, _ = imu_ops.integrate_poses(
+            dev_state[:9].reshape(3, 3), dev_state[9:12], dev_state[12:15],
+            dev_state[15:21], dev_state[21:24], dev_rows[:, :3], dev_rows[:, 3:6],
+            dev_rows[:, 6], torch.ones(len(rows), dtype=torch.bool, device=self.device))
+        return rows[:, 0], Rs, ps

@@ -7,6 +7,14 @@ the optimized state; keep running win-ratio statistics and warn every 64
 frames when the IMU stops outperforming the naive predictor (thresholds
 rot > 0.7, trans > 0.4, vel > 0.5 as in the reference heuristics) — the
 symptom of wrong extrinsics, bad time sync, or miscalibrated noise.
+
+``IMUValidatorExtension`` (registered as ``imu_validator``) feeds it from
+the odometry callbacks alone. A frame is validated one frame after it is
+estimated: its state copy (``EstimationFrame.fetch_state_async``) and the
+copy of its dead-reckoned prediction (``IMUIntegration`` on the pipeline's
+device, read through a ``HostCopy``) start when it is announced and are
+read at the next frame, when they have landed, so the odometry worker never
+waits on the card for them.
 """
 
 from __future__ import annotations
@@ -15,9 +23,13 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from glim_tpu_torch.ops import lie_np
+from glim_tpu_torch.types import HostCopy
+from glim_tpu_torch.utils.extension_module import ExtensionModule
 from glim_tpu_torch.utils.logging import create_module_logger
+from glim_tpu_torch.utils.registry import register_module
 
 logger = create_module_logger("odom")
 
@@ -93,3 +105,78 @@ class IMUValidation:
             logger.warning("IMU translation prediction underperforms (%.2f < 0.4)", t)
         if v < 0.5:
             logger.warning("IMU velocity prediction underperforms (%.2f < 0.5)", v)
+
+
+class IMUValidatorExtension(ExtensionModule):
+    """``libimu_validator.so``: checks the IMU calibration's health from the
+    odometry callback stream (reference: config/config_ros.json
+    extension_modules). Dead-reckons from each optimized frame state to the
+    next frame's stamp and feeds :class:`IMUValidation` the prediction
+    against the optimized result."""
+
+    def __init__(self, device="cuda"):
+        from glim_tpu_torch.common.imu_integration import IMUIntegration
+        from glim_tpu_torch.odometry.callbacks import OdometryEstimationCallbacks as O
+
+        self.validation = IMUValidation()
+        self.integration = IMUIntegration(device)
+        self.frames_validated = 0
+        self._last = None      # (stamp, T_world_imu, v_world_imu, bias)
+        self._pending = None   # the announced frame whose state copy is in flight
+        self._pred = None      # (dt, last sample interval, HostCopy of R, p, p_prev)
+        self._handles = [(O.on_insert_imu, O.on_insert_imu.add(self._on_imu)),
+                         (O.on_new_frame, O.on_new_frame.add(self._on_frame))]
+
+    def detach(self) -> None:
+        for slot, h in self._handles:
+            slot.remove(h)
+        self._handles = []
+
+    def at_exit(self, dump_path: str) -> None:
+        self.validation.report()
+        self.detach()
+
+    def _on_imu(self, stamp, acc, gyro) -> None:
+        self.integration.insert_imu(stamp, acc, gyro)
+
+    def _on_frame(self, frame) -> None:
+        frame.fetch_state_async()
+        prev, self._pending = self._pending, frame
+        if prev is not None:
+            self._validate(prev)
+        self._predict(frame)
+
+    def _predict(self, frame) -> None:
+        """Start the dead reckoning from the last validated state to
+        ``frame``'s stamp, and the copy of its last pose and position."""
+        self._pred = None
+        if self._last is None:
+            return
+        t0, T0, v0, bias = self._last
+        dt = frame.stamp - t0
+        pred = self.integration.integrate_imu_rate_poses(T0, v0, bias, t0, frame.stamp)
+        if pred is not None and dt > 1e-6:
+            stamps, Rs, ps = pred
+            tail = torch.cat([Rs[-1].reshape(-1), ps[-1], ps[-2]])
+            self._pred = (dt, float(stamps[-1] - stamps[-2]), HostCopy(tail))
+        self.integration.erase_imu_data(t0 - 1.0)
+
+    def _validate(self, frame) -> None:
+        frame.fetch_state()
+        T = np.asarray(frame.T_world_imu, np.float64)
+        v = np.asarray(frame.v_world_imu, np.float64)
+        if self._pred is not None:
+            dt, dts, copy = self._pred
+            tail = copy.numpy().astype(np.float64)
+            T_pred = np.eye(4)
+            T_pred[:3, :3] = tail[:9].reshape(3, 3)
+            T_pred[:3, 3] = tail[9:12]
+            v_pred = (tail[9:12] - tail[12:15]) / max(dts, 1e-6)
+            self.validation.validate(T_pred, v_pred, T, v, dt)
+            self.frames_validated += 1
+        self._last = (frame.stamp, T, v, np.asarray(frame.imu_bias, np.float64))
+
+
+@register_module("extension", "imu_validator")
+def create_extension_module(*args, device="cuda", **kwargs):
+    return IMUValidatorExtension(device=device)

@@ -52,6 +52,7 @@ class AsyncGlobalMapping:
         self._request_factors: ConcurrentVector = ConcurrentVector()
         self._mutex = threading.RLock()
         self._last_optimization = time.time()
+        self.skipped_requests = 0     # request kinds the back-end lacks
 
         CB.request_to_optimize.add(self._request_optimize.set)
         CB.request_to_recover.add(self._request_recover.set)
@@ -120,17 +121,23 @@ class AsyncGlobalMapping:
         return self._optimization_enabled() and (needs is None or needs())
 
     def _apply_factor_request(self, req: tuple) -> None:
+        """Apply one extension request; a kind the back-end has no method
+        for is skipped with a warning (the pose graph takes no translation
+        prior), as in the JAX wrapper."""
         gm = self.global_mapping
-        if req[0] == "tp":
+        if req[0] == "tp" and hasattr(gm, "add_translation_prior"):
             gm.add_translation_prior(req[1], req[2], req[3])
-        elif req[0] == "loop":
-            if hasattr(gm, "add_matching_factor"):
-                gm.add_matching_factor(req[1], req[2])
-            else:                        # the pose graph validates it first
-                gm.add_loop_candidate(req[1], req[2])
-        elif req[0] == "between":
+        elif req[0] == "loop" and hasattr(gm, "add_matching_factor"):
+            gm.add_matching_factor(req[1], req[2])
+        elif req[0] == "loop" and hasattr(gm, "add_loop_candidate"):
+            gm.add_loop_candidate(req[1], req[2])   # the pose graph validates it first
+        elif req[0] == "between" and hasattr(gm, "add_between_factor"):
             gm.add_between_factor(req[1], req[2], req[3], req[4])
             self._request_optimize.set()
+        else:
+            self.skipped_requests += 1
+            logger.warning("%s has no method for a %r request; skipped",
+                           type(gm).__name__, req[0])
 
     def _run(self) -> None:
         while True:

@@ -24,9 +24,11 @@ junction states, error and Hessian-diagonal minima (one read), besides the
 GN's per-iteration convergence flag (``global_factors.py``). The adaptive
 voxel resolution stays a device scalar.
 
+``loop_search_enabled`` (the viewer's "set_enabled loop_detection") keeps
+only the odometry-neighbour candidate while off, as in the JAX package.
+
 Not ported: the background precompile worker (it exists only because XLA
-compiles one program per shape), the device mesh (multi-GPU comes last)
-and the viewer's loop-search toggle (the viewer is not ported).
+compiles one program per shape) and the device mesh (multi-GPU comes last).
 """
 
 from __future__ import annotations
@@ -158,6 +160,10 @@ class GlobalMapping(GlobalMappingBase):
         # When True, insert_submap skips its in-line optimize (the
         # end-of-sequence drain sets it around a burst of submaps).
         self.defer_optimization = False
+        # Runtime toggle of the implicit loop search (the command channel's
+        # "set_enabled loop_detection"): off, a new submap gets only its
+        # odometry-neighbour factor.
+        self.loop_search_enabled = True
         # Stacked device tensors, maintained incrementally: submap clouds,
         # per-level lookup tables and the correspondence rows.
         self._sm_stack = None
@@ -501,6 +507,8 @@ class GlobalMapping(GlobalMappingBase):
                 # odometry neighbor unconditionally.
                 order = sorted(cands, key=lambda j: d[j])
                 cands = sorted(set(order[:p.max_implicit_loop_candidates]) | {i - 1})
+            if not self.loop_search_enabled:
+                cands = [j for j in cands if j == i - 1]
         if cands:
             ovs = self._batch_overlaps([(j, i) for j in cands])
             keep = [(j, ov) for j, ov in zip(cands, ovs) if ov >= p.min_implicit_loop_overlap]

@@ -19,9 +19,12 @@ odometry window go to sub-mapping and each new submap to global mapping on
 the caller's thread.
 
 ``submaps`` are the global mapping's, with their optimized
-``T_world_origin``. Extension modules (``glim_tpu/ext/``) are not ported: a
-non-empty ``extension_modules`` raises. A module the port lacks raises,
-naming the module; it is never swapped for another.
+``T_world_origin``. ``extension_modules`` are loaded on ``device`` after the
+stages (``utils/extension_module.py``; kept in ``extensions``): while any
+of them ``needs_wait()``, ``workload()`` reports 1 << 20; ``ok()`` is
+every extension's ``ok()``; ``save()`` calls each one's ``at_exit``. A
+module the port lacks raises, naming the module; it is never swapped for
+another.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from glim_tpu_torch.preprocess.cloud_preprocessor import (CloudPreprocessor,
 from glim_tpu_torch.types import EstimationFrame, RawPoints, SubMap
 from glim_tpu_torch.utils.config import GlobalConfig, create_default_config_dir
 from glim_tpu_torch.utils.data_validator import DataValidator
+from glim_tpu_torch.utils.extension_module import ExtensionModule
 from glim_tpu_torch.utils.logging import create_module_logger
 from glim_tpu_torch.utils.profiling import profile_scope, report
 from glim_tpu_torch.utils.time_keeper import PerPointTimeSettings, TimeKeeper
@@ -62,10 +66,6 @@ class GlimTorch:
                  overrides: Optional[List[tuple]] = None, device="cuda"):
         """``overrides`` is a list of (logical_config, module, name, value)
         applied after loading and before module construction."""
-        if extension_modules:
-            raise NotImplementedError(
-                f"extension modules {list(extension_modules)} need glim_tpu/ext/, which is "
-                "not ported to glim_tpu_torch yet")
         self.device = torch.device(device)
         if self.device.type != "cpu" and not torch.cuda.is_available():
             raise RuntimeError(f"GlimTorch: device {self.device} requested but no CUDA device "
@@ -113,6 +113,7 @@ class GlimTorch:
             self.sub_mapping = sub
             self.global_mapping = glb
         self._sync_estimates: List[EstimationFrame] = []
+        self.extensions = ExtensionModule.load_extensions(extension_modules or [], self.device)
         # The odom -> world anchor follows the globally corrected submaps
         # (fired on the global-mapping worker in async mode; the trajectory
         # manager locks).
@@ -197,6 +198,8 @@ class GlimTorch:
     # -- control --
 
     def workload(self) -> int:
+        if any(ext.needs_wait() for ext in self.extensions):
+            return 1 << 20   # an extension asks for throttling
         if not self.async_mode:
             return 0
         loads = []
@@ -206,7 +209,8 @@ class GlimTorch:
         return max(loads)
 
     def ok(self) -> bool:
-        return True
+        """False when an extension module requests a shutdown."""
+        return all(ext.ok() for ext in self.extensions)
 
     def wait(self) -> None:
         """Flush the pipeline (end of sequence): the frames still in the
@@ -264,10 +268,12 @@ class GlimTorch:
         return self.global_backend.submaps
 
     def save(self, path: str) -> None:
-        """Log the stage profile, then write the map dump to ``path``
-        (``io/dump.py`` layout)."""
+        """Log the stage profile, write the map dump to ``path``
+        (``io/dump.py`` layout), then call each extension's ``at_exit``."""
         report()
         self.global_mapping.save(path)
+        for ext in self.extensions:
+            ext.at_exit(path)
 
     def export_points(self) -> np.ndarray:
         return self.global_mapping.export_points()

@@ -251,6 +251,12 @@ class GlobalConfig(Config):
             return cls._instance
 
     @classmethod
+    def current(cls) -> Optional["GlobalConfig"]:
+        """The instance, or None when none was initialized."""
+        with cls._lock:
+            return cls._instance
+
+    @classmethod
     def reset(cls) -> None:
         with cls._lock:
             cls._instance = None

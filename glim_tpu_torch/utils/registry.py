@@ -70,7 +70,14 @@ def _ensure_builtins_imported(kind: str) -> None:
             "sub_mapping": ["glim_tpu_torch.mapping.sub_mapping",
                             "glim_tpu_torch.mapping.sub_mapping_passthrough"],
             "global_mapping": ["glim_tpu_torch.mapping.global_mapping",
-                               "glim_tpu_torch.mapping.global_mapping_pose_graph"]}
+                               "glim_tpu_torch.mapping.global_mapping_pose_graph"],
+            "extension": ["glim_tpu_torch.viewer.standard_viewer",
+                          "glim_tpu_torch.viewer.memory_monitor",
+                          "glim_tpu_torch.common.imu_validation",
+                          "glim_tpu_torch.ext.scan_context",
+                          "glim_tpu_torch.ext.image_loop",
+                          "glim_tpu_torch.ext.gnss_global",
+                          "glim_tpu_torch.ext.velocity_suppressor"]}
     for m in mods.get(kind, []):
         importlib.import_module(m)
 

@@ -222,6 +222,24 @@ def test_knn_search_k3():
     np.testing.assert_allclose(N(dt)[qm], np.asarray(dj)[qm], atol=1e-4)
 
 
+def test_knn_search_long_rows_match_jax():
+    """Rows of 5000 targets through the (value, column)-key selection: the
+    same neighbours as JAX, exact duplicates of targets (ties) to the lower
+    index, masked targets skipped."""
+    rng = np.random.default_rng(16)
+    t = rng.uniform(-5, 5, (5000, 3)).astype(np.float32)
+    t[4000:4100] = t[100:200]                       # duplicated targets
+    q = np.concatenate([t[100:160], rng.uniform(-5, 5, (140, 3))]).astype(np.float32)
+    qm, tm = rng.uniform(size=200) > 0.05, rng.uniform(size=5000) > 0.2
+    tm[100:200] = tm[4000:4100] = True
+    ij, dj = j_knn.knn_search(J(q), J(qm), J(t), J(tm), k=4)
+    it, dt = t_knn.knn_search(T(q), T(qm), T(t), T(tm), k=4)
+    np.testing.assert_array_equal(N(it)[:60], ij[:60])
+    apart = np.diff(np.asarray(dj), axis=1).min(axis=1) > 1e-4
+    np.testing.assert_array_equal(N(it)[apart & qm], ij[apart & qm])
+    np.testing.assert_allclose(N(dt)[qm], np.asarray(dj)[qm], atol=1e-4)
+
+
 # ---------------------------------------------------------- covariances
 
 

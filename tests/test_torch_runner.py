@@ -113,13 +113,34 @@ def test_scan_loaders_match_jax(tmp_path):
     (["--points-topic", "/points"], "rosbag"),
 ])
 def test_unported_runner_options_raise(tmp_path, argv, module):
+    """Bag playback still raises, naming the module it needs; the viewer
+    stream and the command file are ported and run (on a three-scan
+    dataset: a stream line a scan, a command answered after the first)."""
+    from glim_tpu_torch.io.synthetic import generate_sequence
     from glim_tpu_torch.tools import glim_runner
 
     ds = tmp_path / "ds"
-    ds.mkdir()
-    (ds / "stamps.csv").write_text("0.0\n")
-    with pytest.raises(NotImplementedError, match=module):
-        glim_runner.main([str(ds), "--device", "cpu"] + argv)
+    if module == "rosbag":
+        ds.mkdir()
+        (ds / "stamps.csv").write_text("0.0\n")
+        with pytest.raises(NotImplementedError, match=module):
+            glim_runner.main([str(ds), "--device", "cpu"] + argv)
+        return
+    seq = generate_sequence(duration=0.3, n_scan_points=300, scene_points=3000, seed=4)
+    glim_runner.save_dataset(str(ds), seq.imu, [(s.stamp, s.points, s.times)
+                                                for s in seq.scans])
+    path = str(tmp_path / argv[1])
+    if module == "interactive_viewer":
+        (tmp_path / argv[1]).write_text('{"cmd": "status"}\nnot json\n')
+    run = glim_runner.main([str(ds), "--device", "cpu", "--dump", str(tmp_path / "d"),
+                            argv[0], path])
+    assert run["scans"] == 3
+    if module == "viewer":
+        assert run["viewer"] is not None and (tmp_path / "d" / "viewer_odom.txt").exists()
+        assert os.path.getsize(path) > 0
+    else:
+        assert [(c["cmd"], out["ok"]) for c, out in run["command_results"]] == [("status", True)]
+    run["glim"].wait()
 
 
 def test_bag_playback_raises(tmp_path):
@@ -131,12 +152,16 @@ def test_bag_playback_raises(tmp_path):
 
 
 def test_extension_modules_raise(tmp_path):
+    """A module the port lacks raises, naming it; the ported ones load."""
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.utils.config import create_default_config_dir
 
     cfg = create_default_config_dir(str(tmp_path / "cfg"))
-    with pytest.raises(NotImplementedError, match="glim_tpu/ext/"):
-        GlimTorch(cfg, extension_modules=["libscan_context_loop_detector.so"], device="cpu")
+    with pytest.raises(NotImplementedError, match="librviz_viewer.so"):
+        GlimTorch(cfg, extension_modules=["librviz_viewer.so"], device="cpu")
+    glim = GlimTorch(cfg, extension_modules=["libscan_context_loop_detector.so"], device="cpu")
+    assert [type(e).__name__ for e in glim.extensions] == ["ScanContextLoopDetector"]
+    glim.wait()
     GlimTorch(cfg, extension_modules=[], device="cpu").wait()
 
 
@@ -174,3 +199,61 @@ def test_chip_smoke_async_rehearsal_on_cpu(tmp_path):
         preprocess_overrides=dict(random_downsample_target=1000, downsample_resolution=0.4))
     assert gicp["between_launches"] is None and gicp["kernel_launches"] == 0
     chip_smoke.check_slice(gicp, min_window_steps=5)
+
+
+def test_command_poller_playback_protocol(tmp_path):
+    """The runner poller's playback controls, as in the JAX package: pause
+    blocks the feed gate, step lets one scan through, resume unblocks."""
+    import threading
+    import time as _time
+    import types as pytypes
+
+    from glim_tpu_torch.tools.glim_runner import _make_command_poller, _playback_gate
+
+    glim = pytypes.SimpleNamespace(global_backend=pytypes.SimpleNamespace(submaps=[]),
+                                   global_mapping=None)
+    path = tmp_path / "commands.jsonl"
+    controls = {"paused": False, "step": 0}
+    poll = _make_command_poller(glim, str(path), controls)
+    with open(path, "a") as f:
+        f.write('{"cmd": "pause"}\n')
+    poll()
+    assert controls["paused"]
+    passed = []
+
+    def feed():
+        _playback_gate(controls, poll)
+        passed.append(_time.monotonic())
+    th = threading.Thread(target=feed)
+    th.start()
+    _time.sleep(0.25)
+    assert not passed, "the gate let a scan through while paused"
+    with open(path, "a") as f:
+        f.write('{"cmd": "step", "n": 1}\n')
+    th.join(timeout=10.0)
+    assert passed and controls["paused"] and controls["step"] == 0
+    with open(path, "a") as f:
+        f.write('{"cmd": "resume"}\n')
+    poll()
+    assert not controls["paused"]
+    t0 = _time.monotonic()
+    _playback_gate(controls, poll)
+    assert _time.monotonic() - t0 < 0.2
+    assert [c["cmd"] for c, _ in poll.results] == ["pause", "step", "resume"]
+
+
+def test_chip_smoke_live_corrections_rehearsal_on_cpu(tmp_path):
+    """chip_smoke.py's phase 11c at a tiny size on the CPU: the runner with
+    --viewer-stream and --commands, a helper thread appending the live
+    corrections once the stream shows three submaps, with the phase's
+    checks (no launches counted on the CPU)."""
+    import chip_smoke
+
+    res = chip_smoke.run_live_corrections(
+        "cpu", n_scans=50, n_scan_points=1500, scene_points=20000, seed=53,
+        overrides=SMALL_DEFAULT_OVERRIDES + [
+            ("config_sub_mapping", "sub_mapping", "submap_target_num_points", 1000)],
+        work_dir=str(tmp_path))
+    chip_smoke.check_live_corrections(res)
+    assert os.listdir(str(tmp_path)) == []
+    assert res["kernel_launches"] == 0 and res["aligns"][0]["launches"] == 0

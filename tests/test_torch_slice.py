@@ -141,7 +141,13 @@ def test_import_isolation():
             "glim_tpu_torch.mapping.sub_mapping_passthrough, glim_tpu_torch.tools.run_eval, "
             "glim_tpu_torch.tools.evaluate, glim_tpu_torch.mapping.submap_refine, "
             "glim_tpu_torch.mapping.global_mapping_pose_graph, glim_tpu_torch.ops.registration, "
-            "chip_smoke; "
+            "glim_tpu_torch.utils.extension_module, glim_tpu_torch.ext.scan_context, "
+            "glim_tpu_torch.ext.image_loop, glim_tpu_torch.ext.gnss_global, "
+            "glim_tpu_torch.ext.velocity_suppressor, glim_tpu_torch.viewer.memory_monitor, "
+            "glim_tpu_torch.viewer.stream_writer, glim_tpu_torch.viewer.standard_viewer, "
+            "glim_tpu_torch.viewer.interactive_tools, glim_tpu_torch.viewer.interactive_viewer, "
+            "glim_tpu_torch.tools.watch, glim_tpu_torch.common.cloud_covariance_estimation, "
+            "glim_tpu_torch.common.cloud_deskewing, chip_smoke; "
             "from glim_tpu_torch.utils.registry import available_modules; "
             "assert {'odometry_estimation_gpu', 'odometry_estimation_cpu', "
             "'odometry_estimation_ct', 'odometry_estimation_lidar_only'} "
@@ -150,6 +156,9 @@ def test_import_isolation():
             "<= set(available_modules('sub_mapping')); "
             "assert {'global_mapping', 'global_mapping_pose_graph'} "
             "<= set(available_modules('global_mapping')); "
+            "assert {'standard_viewer', 'memory_monitor', 'imu_validator', 'scan_context', "
+            "'image_loop', 'gnss_global', 'velocity_suppressor'} "
+            "== set(available_modules('extension')); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'glim_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
