@@ -130,7 +130,31 @@ Phases (any failure exits non-zero):
      graph: each result, the between
      factors in the graph, align's exact nn_search count (sum over its
      three LM passes of 1 + trial steps, + 2), the dump loaded back;
-  12. print the kernel summary JSON and, last, the device JSON.
+  12. the ROS front end and the offline tools: (a) phase 6's 150 scans
+     written as a rosbag2 .db3 (PointCloud2 of float32 x/y/z/t, Imu in
+     g-units) and played by ``glim_runner BAG``: every scan fed, acc_scale
+     detected as 9.80665, the ATE bound and within 10% or 2 mm of phase
+     6's ATE, every frame in a submap, read + decode ms a scan; (b) the
+     first 100 scans as messages through GlimROSNode on a fake node, async,
+     with librviz_viewer.so and libimu_validator.so, spin_once after each
+     scan: an odometry message for every scan from the first estimate on,
+     the last at the last estimate's pose to 1e-6 m, the TF pairs, the
+     aligned cloud as wide as its frame's valid points, a map message, the
+     published poses' ATE bound; (c) on (a)'s dump: ``offline_viewer open
+     --optimize --ply --save`` (the PLY holds export_points' count),
+     ``merge DUMP DUMP`` (twice the submaps, sessions 0 / 1, cross-session
+     matching factors, no kernel launch), ``interactive_viewer --exec
+     "loop_close 0 2" --exec optimize`` (align at Q = N = 65,536 with
+     exactly sum (1 + trial steps) + 2 nn_search launches), the map
+     editor's outlier selection over the whole map against a cKDTree
+     reference (Jaccard >= 0.999, its ms and peak memory), min-cut and
+     region-growing selections within 3 m of a floor point (at most 16,384
+     candidates) that grow beyond it, against the CPU editor (Jaccard >=
+     0.99), the CLI's min-cut selection (10 m, the first 16,384
+     candidates) against the CPU editor's (Jaccard >= 0.99), and
+     ``map_editor --select-object --save`` loaded back with exactly the
+     deleted points gone;
+  13. print the kernel summary JSON and, last, the device JSON.
 
 ``--profile`` runs phase 5's configuration for 100 scans: host-clock time
 over scans 60-79 (the 48-state window is full and sub-mapping busy from
@@ -144,6 +168,12 @@ syncs per insert and per optimize) and phase 6's async pipeline
 (DIR/profile_async.txt: the spans the profiler records from the worker
 threads, and the device's busy share).
 
+``--ab-async PARENT_DIR`` runs phases 6 and 11a (``run_async_default``,
+``run_extensions`` and their checks) of the tree in PARENT_DIR (a ``git
+archive`` of another commit, with its own chip_smoke.py) and of this one,
+each in a process of its own, parent / change / change / parent, and
+prints a line of scans/s and ATEs for each run.
+
 ``--eval [OUT]`` runs the port's full run_eval (the five sequences,
 city_loop at 47 s, the registry matrix with its pose-graph rows and the
 window study) on the card and writes it to OUT (default
@@ -151,8 +181,9 @@ build/EVAL_TORCH.md); it is not part of the default smoke.
 
 ``run_slice``, ``run_default``, ``run_ring``, ``run_pose_graph_ring``,
 ``run_async_default``, ``run_shipped``, ``run_pose_graph_config``,
-``run_extensions``, ``run_loop_detectors`` and ``run_live_corrections`` are
-importable and run on any device (the CPU tests rehearse them at a tiny
+``run_extensions``, ``run_loop_detectors``, ``run_live_corrections``,
+``run_bag``, ``run_ros_node`` and ``run_offline_tools`` are importable and
+run on any device (the CPU tests rehearse them at a tiny
 size); ``main`` requires a CUDA device.
 """
 
@@ -1605,6 +1636,648 @@ def _print_live_corrections(res: dict, card: str) -> None:
           + (f"{mem / 2**20:.1f} MiB" if mem is not None else "not measured"))
 
 
+# Phase 12 (cells 14-16): ROS bag playback, the ROS node with its rviz
+# publisher, and the offline map tools on the bag run's dump.
+BAG_SCANS = 150                 # 12a: phase 6's sequence
+ROS_SCANS = 100                 # 12b: its first 100 scans
+GRAVITY = 9.80665               # m/s^2; the bag's IMU is in g-units
+BAG_ATE_REL = 0.10              # 12a's ATE within 10% (or BAG_ATE_ABS) of phase 6's
+BAG_ATE_ABS = 0.002             # m
+BAG_POINTS_TOPIC = "/os_cloud_node/points"
+BAG_IMU_TOPIC = "/os_cloud_node/imu"
+ROS_EXTENSIONS = ["librviz_viewer.so", "libimu_validator.so"]
+ROS_POSE_TOL = 1e-6             # m, the last published pose against its estimate
+REPL_TARGET, REPL_SOURCE = 0, 2  # 12c: the REPL's loop_close pair
+OUTLIER_K = 10
+OUTLIER_JACCARD = 0.999         # the editor's outliers against a cKDTree reference
+SEGMENT_JACCARD = 0.99          # segmentations on the card against the CPU editor
+SEGMENT_CAP = 16384
+SEGMENT_RADIUS = 3.0            # m; the cells around a floor patch, not the whole map
+OBJECT_RADIUS, OBJECT_CAP = 10.0, 16384  # select_segmentation's defaults, as the CLI runs it
+
+
+class _CdrWriter:
+    """Little-endian XCDR1 encoder, alignment counted from the payload's
+    start (after the 4-byte encapsulation header): the writer of the two
+    message types ``io/rosbag.py`` decodes."""
+
+    def __init__(self):
+        self.buf = bytearray(b"\x00\x01\x00\x00")
+
+    def prim(self, fmt: str, v) -> None:
+        import struct
+        size = struct.calcsize(fmt)
+        self.buf += b"\x00" * (-(len(self.buf) - 4) % size)
+        self.buf += struct.pack("<" + fmt, v)
+
+    def string(self, s: str) -> None:
+        b = s.encode() + b"\x00"
+        self.prim("I", len(b))
+        self.buf += b
+
+    def header(self, stamp: float, frame_id: str) -> None:
+        ns = int(round(stamp * 1e9))
+        self.prim("i", ns // 1_000_000_000)
+        self.prim("I", ns % 1_000_000_000)
+        self.string(frame_id)
+
+    def f64s(self, values) -> None:
+        for v in values:
+            self.prim("d", float(v))
+
+
+def cdr_pointcloud2(stamp: float, points: np.ndarray, times: np.ndarray) -> bytes:
+    """A dense PointCloud2 of float32 x, y, z, t (Ouster-style per-point
+    times), frame os_lidar."""
+    w = _CdrWriter()
+    w.header(stamp, "os_lidar")
+    n = len(points)
+    w.prim("I", 1)
+    w.prim("I", n)
+    w.prim("I", 4)
+    for k, name in enumerate(("x", "y", "z", "t")):
+        w.string(name)
+        w.prim("I", 4 * k)
+        w.prim("B", 7)                       # FLOAT32
+        w.prim("I", 1)
+    w.prim("B", 0)                           # is_bigendian
+    w.prim("I", 16)
+    w.prim("I", 16 * n)
+    data = np.empty((n, 4), "<f4")
+    data[:, :3] = points[:, :3]
+    data[:, 3] = times
+    w.prim("I", 16 * n)
+    w.buf += data.tobytes()
+    w.prim("B", 1)                           # is_dense
+    return bytes(w.buf)
+
+
+def cdr_imu(stamp: float, acc, gyro) -> bytes:
+    w = _CdrWriter()
+    w.header(stamp, "imu_link")
+    w.f64s([0.0, 0.0, 0.0, 1.0])
+    w.f64s([0.0] * 9)
+    w.f64s(gyro)
+    w.f64s([0.0] * 9)
+    w.f64s(acc)
+    w.f64s([0.0] * 9)
+    return bytes(w.buf)
+
+
+def write_rosbag2(path: str, seq) -> float:
+    """``seq`` as a rosbag2 sqlite3 bag (a .db3 file with rosbag2's tables
+    and stamp index): PointCloud2 scans on BAG_POINTS_TOPIC, logged at the
+    scan's end as a sensor's ROS node publishes them, and Imu samples in g-units (as
+    Livox sensors publish them) on BAG_IMU_TOPIC. Returns the bag's MiB."""
+    import sqlite3
+
+    rows = [(2, int(round(r[0] * 1e9)), cdr_imu(r[0], r[1:4] / GRAVITY, r[4:7]))
+            for r in seq.imu]
+    rows += [(1, int(round((s.stamp + 0.1) * 1e9)), cdr_pointcloud2(s.stamp, s.points, s.times))
+             for s in seq.scans]
+    rows.sort(key=lambda r: r[1])
+    conn = sqlite3.connect(path)
+    try:
+        conn.execute("CREATE TABLE topics(id INTEGER PRIMARY KEY, name TEXT NOT NULL, "
+                     "type TEXT NOT NULL, serialization_format TEXT NOT NULL, "
+                     "offered_qos_profiles TEXT NOT NULL)")
+        conn.execute("CREATE TABLE messages(id INTEGER PRIMARY KEY, topic_id INTEGER NOT NULL, "
+                     "timestamp INTEGER NOT NULL, data BLOB NOT NULL)")
+        # rosbag2's sqlite3 storage indexes the stamps its reader orders by.
+        conn.execute("CREATE INDEX timestamp_idx ON messages (timestamp ASC)")
+        conn.executemany("INSERT INTO topics VALUES (?,?,?,?,?)",
+                         [(1, BAG_POINTS_TOPIC, "sensor_msgs/msg/PointCloud2", "cdr", ""),
+                          (2, BAG_IMU_TOPIC, "sensor_msgs/msg/Imu", "cdr", "")])
+        conn.executemany("INSERT INTO messages(topic_id, timestamp, data) VALUES (?,?,?)", rows)
+        conn.commit()
+    finally:
+        conn.close()
+    return os.path.getsize(path) / 2**20
+
+
+def run_bag(device, n_scans: int = BAG_SCANS, n_scan_points: int = 65536,
+            scene_points: int = 400000, seed: int = 0, overrides=None,
+            work_dir=None) -> dict:
+    """Phase 12a: phase 6's sequence written as a rosbag2 .db3
+    (write_rosbag2) and played by the port's runner (``glim_runner BAG``:
+    bag decoding, the IMU's g-unit detection, the async pipeline, the dump)
+    on ``device``. The bag and the dump stay in ``res["work_dir"]`` (under
+    ``work_dir``) for phase 12c; the caller removes it."""
+    from glim_tpu_torch.io.synthetic import ate_rmse
+    from glim_tpu_torch.mapping.callbacks import SubMappingCallbacks
+    from glim_tpu_torch.ops.nn_search import nn_search
+    from glim_tpu_torch.tools import glim_runner
+
+    _release_pipelines()
+    dev = torch.device(device)
+    seq = _sequence(n_scans, n_scan_points, scene_points, seed)
+    tmp = tempfile.mkdtemp(prefix="glim_smoke_bag_", dir=work_dir)
+    done = False
+    try:
+        bag, dump = os.path.join(tmp, "run.db3"), os.path.join(tmp, "dump")
+        t0 = time.perf_counter()
+        bag_mib = write_rosbag2(bag, seq)
+        write_s = time.perf_counter() - t0
+        to_sub = []
+        SubMappingCallbacks.on_insert_frame.add(lambda f: to_sub.append(f.id))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        nn_search.kernel_launches = 0
+        run = glim_runner.main([bag, "--dump", dump, "--device", str(dev),
+                                "--config", config_dir(overrides, "glim_smoke_bag_cfg_")])
+        launches = nn_search.kernel_launches
+        glim = run["glim"]
+        ests = glim.odometry_estimates
+        poses = [e.T_world_lidar for e in ests]
+        gt = [seq.gt_poses[int(round(e.stamp * 10.0))] for e in ests]
+        subs = glim.submaps
+        res = dict(
+            work_dir=tmp, dump=dump, bag_mib=bag_mib, bag_write_seconds=write_s,
+            scans=run["scans"], estimates=len(ests), seconds=run["seconds"],
+            scans_per_s=run["scans"] / run["seconds"], kernel_launches=launches,
+            decode_ms_per_scan=1e3 * run["decode_seconds"] / max(run["scans"], 1),
+            acc_scale=run["acc_scale"],
+            poses_finite=bool(all(np.all(np.isfinite(T)) for T in poses)),
+            ate=ate_rmse(poses, gt, align=True), submaps=len(subs),
+            submap_frames_total=sum(len(s.frames) for s in subs),
+            frames_to_sub_mapping=len(to_sub), submap_ate=submap_origin_ate(subs, seq),
+            max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None))
+        done = True
+        return res
+    finally:
+        if not done:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_bag(res: dict, runner: dict = None, n_scans: int = BAG_SCANS) -> None:
+    """Phase 12a's failure conditions: every scan of the bag fed, the IMU's
+    scale detected as GRAVITY, finite poses, the ATE bound and (given
+    phase 6's run) within BAG_ATE_REL or BAG_ATE_ABS of its ATE, and every
+    frame that reached sub-mapping in a submap."""
+    name = "bag playback"
+    if res["scans"] != n_scans:
+        raise AssertionError(f"{name}: {res['scans']} scans fed, the bag holds {n_scans}")
+    if abs(res["acc_scale"] - GRAVITY) > 1e-12:
+        raise AssertionError(f"{name}: acc_scale {res['acc_scale']}, want {GRAVITY}")
+    if not res["poses_finite"] or not res["ate"] < DEFAULT_ATE_BOUND:
+        raise AssertionError(f"{name}: ATE {res['ate']} m (bound {DEFAULT_ATE_BOUND} m)")
+    if runner is not None and abs(res["ate"] - runner["ate"]) > max(
+            BAG_ATE_REL * runner["ate"], BAG_ATE_ABS):
+        raise AssertionError(f"{name}: ATE {res['ate']:.5f} m, the dataset run's "
+                             f"{runner['ate']:.5f} m")
+    if res["submaps"] < 2 or res["submap_frames_total"] != res["frames_to_sub_mapping"]:
+        raise AssertionError(f"{name}: {res['submaps']} submaps holding "
+                             f"{res['submap_frames_total']} frames, "
+                             f"{res['frames_to_sub_mapping']} reached sub-mapping")
+
+
+def _print_bag(res: dict, runner: dict, card: str) -> None:
+    print("bag: " + json.dumps(res))
+    mem = res["max_memory_allocated"]
+    print(f"bag [{card}]: {res['scans']} scans from a {res['bag_mib']:.1f} MiB rosbag2 bag in "
+          f"{res['seconds']:.3f} s = {res['scans_per_s']:.4f} scans/s (phase 6's dataset run in "
+          f"this call: {runner['scans_per_s']:.4f}), read + decode "
+          f"{res['decode_ms_per_scan']:.3f} ms a scan, acc_scale {res['acc_scale']}, ATE "
+          f"{res['ate']:.4f} m (phase 6: {runner['ate']:.4f} m), {res['submaps']} submaps, "
+          f"{res['kernel_launches']} nn_search launches (the default path runs none), "
+          f"submap-origin ATE {res['submap_ate']} m, max memory "
+          + (f"{mem / 2**20:.1f} MiB" if mem is not None else "not measured"))
+
+
+class _FakePublisher:
+    def __init__(self, topic):
+        self.topic = topic
+        self.messages = []
+
+    def publish(self, msg):
+        self.messages.append(msg)
+
+
+class FakeNode:
+    """The rclpy node surface GlimROSNode uses, without a timer (the
+    caller drives spin_once)."""
+
+    def __init__(self):
+        self.subscriptions = {}
+        self.publishers = {}
+
+    def create_subscription(self, msg_type, topic, callback, qos):
+        self.subscriptions[topic] = callback
+        return (msg_type, topic)
+
+    def create_publisher(self, msg_type, topic, qos):
+        self.publishers[topic] = _FakePublisher(topic)
+        return self.publishers[topic]
+
+
+def imu_msg(t: float, acc, gyro):
+    """A duck-typed sensor_msgs/Imu."""
+    from types import SimpleNamespace
+
+    from glim_tpu_torch.ros import messages as rosmsg
+    return SimpleNamespace(
+        header=SimpleNamespace(stamp=rosmsg.stamp_msg(t), frame_id="imu_link"),
+        linear_acceleration=SimpleNamespace(x=acc[0], y=acc[1], z=acc[2]),
+        angular_velocity=SimpleNamespace(x=gyro[0], y=gyro[1], z=gyro[2]))
+
+
+def _msg_pose(msg) -> np.ndarray:
+    from glim_tpu_torch.ops import lie_np
+    p, q = msg.pose.pose.position, msg.pose.pose.orientation
+    T = np.eye(4)
+    T[:3, :3] = lie_np.quat_to_rot(np.array([q.x, q.y, q.z, q.w]))
+    T[:3, 3] = p.x, p.y, p.z
+    return T
+
+
+def run_ros_node(device, n_scans: int = ROS_SCANS, n_scan_points: int = 65536,
+                 scene_points: int = 400000, seed: int = 0, overrides=None,
+                 async_mode: bool = True) -> dict:
+    """Phase 12b: phase 5's sequence (first ``n_scans``) as ROS messages
+    through GlimROSNode on a FakeNode, with librviz_viewer.so and
+    libimu_validator.so: IMU in g-units up to each scan's end, the scan as
+    a PointCloud2, then the node's and the rviz viewer's spin_once (and
+    while the workload exceeds MAX_WORKLOAD); after wait(), spins until
+    every announced frame is taken in. Returns the messages' metrics."""
+    from glim_tpu_torch.io.synthetic import ate_rmse
+    from glim_tpu_torch.ops.nn_search import nn_search
+    from glim_tpu_torch.ros import messages as rosmsg
+    from glim_tpu_torch.ros.cloud_converter import to_sec
+    from glim_tpu_torch.ros.node import GlimROSNode
+
+    _release_pipelines()
+    dev = torch.device(device)
+    seq = _sequence(n_scans, n_scan_points, scene_points, seed)
+    cfg = config_dir(list(overrides or []) + [
+        ("config_ros", "glim_ros", "extension_modules", ROS_EXTENSIONS),
+        ("config_ros", "glim_ros", "imu_topic", BAG_IMU_TOPIC),
+        ("config_ros", "glim_ros", "points_topic", BAG_POINTS_TOPIC)], "glim_smoke_ros_cfg_")
+    node = FakeNode()
+    gn = GlimROSNode(node, config_path=cfg, async_mode=async_mode, device=dev)
+    rviz = next(e for e in gn.glim.extensions if type(e).__name__ == "RvizViewer")
+    validator = next(e for e in gn.glim.extensions
+                     if type(e).__name__ == "IMUValidatorExtension")
+    imu_cb, points_cb = node.subscriptions[BAG_IMU_TOPIC], node.subscriptions[BAG_POINTS_TOPIC]
+
+    def spin():
+        gn.spin_once()
+        rviz.spin_once()
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    nn_search.kernel_launches = 0
+    t0 = time.perf_counter()
+    imu_i = 0
+    for raw in seq.scans:
+        while imu_i < len(seq.imu) and seq.imu[imu_i, 0] <= raw.stamp + 0.1:
+            r = seq.imu[imu_i]
+            imu_cb(imu_msg(r[0], r[1:4] / GRAVITY, r[4:7]))
+            imu_i += 1
+        points_cb(rosmsg.make_pointcloud2(raw.stamp, "os_lidar", raw.points, times=raw.times))
+        spin()
+        while gn.glim.workload() > MAX_WORKLOAD:
+            time.sleep(0.01)
+            spin()
+    gn.glim.wait()
+    for _ in range(1000):
+        spin()
+        if not gn._announced and not rviz._scans:
+            break
+        time.sleep(0.01)
+    seconds = time.perf_counter() - t0
+    launches = nn_search.kernel_launches
+    gn.stop()
+
+    ests = gn.glim.odometry_estimates
+    odom = node.publishers["/glim_ros/odom"].messages
+    # Messages carry ns stamps; the odometry also announces (and the node
+    # publishes) the frames of its initialization window.
+    scan_of = {round(s.stamp, 6): i for i, s in enumerate(seq.scans)}
+    scan_index = lambda m: scan_of.get(round(to_sec(m.header.stamp), 6))  # noqa: E731
+    published = [(scan_index(m), _msg_pose(m)) for m in odom]
+    matched = [(i, T) for i, T in published if i is not None]
+    by_stamp = {round(e.stamp, 6): e for e in ests}
+    last = odom[-1] if odom else None
+    last_est = by_stamp.get(round(to_sec(last.header.stamp), 6)) if last is not None else None
+    aligned = node.publishers["/glim_ros/aligned_points"].messages
+    aligned_est = by_stamp.get(round(to_sec(aligned[-1].header.stamp), 6)) if aligned else None
+    tfs = node.publishers["/tf"].messages
+    p = gn.params
+    res = dict(
+        scans=n_scans, estimates=len(ests), seconds=seconds, scans_per_s=n_scans / seconds,
+        kernel_launches=launches, first_estimate_scan=scan_of[round(ests[0].stamp, 6)] if ests else None,
+        odom_messages=len(odom), distinct_stamps=len({i for i, _ in matched}),
+        unmatched_stamps=len(odom) - len(matched),
+        last_is_last_estimate=bool(ests) and last_est is ests[-1],
+        last_pose_err=(float(np.abs(_msg_pose(last)[:3, 3]
+                                    - last_est.T_world_sensor()[:3, 3]).max())
+                       if last_est is not None else None),
+        published_ate=(ate_rmse([T for _, T in matched], [seq.gt_poses[i] for i, _ in matched],
+                                align=True) if len(matched) >= 3 else None),
+        tf_pairs=sorted({(t.header.frame_id, t.child_frame_id)
+                         for t in tfs[-1].transforms}) if tfs else [],
+        base_frame=p.base_frame_id or p.imu_frame_id, imu_frame=p.imu_frame_id,
+        lidar_frame=p.lidar_frame_id, acc_scale=gn._imu_cond.acc_scale,
+        aligned_messages=len(aligned),
+        aligned_width=int(aligned[-1].width) if aligned else None,
+        aligned_valid=int(aligned_est.frame.mask.sum()) if aligned_est is not None else None,
+        map_messages=len(node.publishers["/glim_ros/map"].messages),
+        frames_validated=validator.frames_validated,
+        max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None))
+    for e in gn.glim.extensions:
+        e.detach()
+    return res
+
+
+def check_ros_node(res: dict) -> None:
+    """Phase 12b's failure conditions: one odometry message for every scan
+    from the first estimate on (the window's lag), each at a scan's stamp
+    and none twice, the last one at the last estimate's pose to
+    ROS_POSE_TOL, the TF contract, the aligned cloud as wide as its frame's
+    valid points, a map message, the g-unit detection and the published
+    poses' ATE bound."""
+    name = "ROS node"
+    lag = res["first_estimate_scan"]
+    if lag is None or res["odom_messages"] < res["scans"] - lag or res["unmatched_stamps"] \
+            or res["distinct_stamps"] != res["odom_messages"]:
+        raise AssertionError(f"{name}: {res['odom_messages']} odometry messages "
+                             f"({res['distinct_stamps']} stamps) for {res['scans']} scans "
+                             f"(the first estimate at scan {lag}), "
+                             f"{res['unmatched_stamps']} stamps of no scan")
+    if not res["last_is_last_estimate"] or not res["last_pose_err"] <= ROS_POSE_TOL:
+        raise AssertionError(f"{name}: the last odometry message is not the last estimate "
+                             f"to {ROS_POSE_TOL} m ({res['last_pose_err']})")
+    want = {("map", "odom"), ("odom", res["base_frame"]), ("imu_link", "os_lidar")}
+    if res["imu_frame"] != "imu_link" or res["lidar_frame"] != "os_lidar" or \
+            not want <= {tuple(t) for t in res["tf_pairs"]}:
+        raise AssertionError(f"{name}: TF pairs {res['tf_pairs']}, want {sorted(want)}")
+    if not res["aligned_messages"] or res["aligned_width"] != res["aligned_valid"]:
+        raise AssertionError(f"{name}: aligned cloud of {res['aligned_width']} points, its "
+                             f"frame holds {res['aligned_valid']}")
+    if res["map_messages"] < 1:
+        raise AssertionError(f"{name}: no /glim_ros/map message")
+    if abs(res["acc_scale"] - GRAVITY) > 1e-12:
+        raise AssertionError(f"{name}: acc_scale {res['acc_scale']}")
+    if res["published_ate"] is None or not res["published_ate"] < DEFAULT_ATE_BOUND:
+        raise AssertionError(f"{name}: ATE of the published poses {res['published_ate']} m")
+
+
+def _print_ros_node(res: dict, card: str) -> None:
+    print("ros: " + json.dumps(res))
+    mem = res["max_memory_allocated"]
+    print(f"ros [{card}]: {res['scans']} PointCloud2 scans through GlimROSNode (async, rviz + "
+          f"imu_validator) in {res['seconds']:.3f} s = {res['scans_per_s']:.4f} scans/s, "
+          f"{res['odom_messages']} odometry messages (first estimate at scan "
+          f"{res['first_estimate_scan']}, ATE "
+          f"{res['published_ate']} m), last pose error {res['last_pose_err']} m, "
+          f"{res['aligned_messages']} aligned clouds (last {res['aligned_width']} points), "
+          f"{res['map_messages']} map messages, {res['frames_validated']} frames validated, "
+          f"{res['kernel_launches']} nn_search launches, "
+          "max memory " + (f"{mem / 2**20:.1f} MiB" if mem is not None else "not measured"))
+
+
+def _jaccard(a, b) -> float:
+    a, b = set(a), set(b)
+    return len(a & b) / len(a | b) if a | b else 1.0
+
+
+def outlier_reference(points: np.ndarray, k: int = OUTLIER_K, std_mul: float = 1.0) -> set:
+    """Statistical outliers by scipy's cKDTree (independent of the port):
+    a point whose mean distance to its k nearest (itself included) is not
+    below the mean + std_mul x std over all points."""
+    from scipy.spatial import cKDTree
+    d, _ = cKDTree(points).query(points, k=k)
+    mean_k = d.mean(axis=1)
+    thresh = mean_k.mean() + mean_k.std() * std_mul
+    return set(np.where(~(mean_k < thresh))[0].tolist())
+
+
+def run_offline_tools(device, dump: str, work_dir: str, segment_cap: int = SEGMENT_CAP
+                      ) -> dict:
+    """Phase 12c on a dump: ``offline_viewer open --optimize --ply --save``,
+    ``offline_viewer merge DUMP DUMP``, ``interactive_viewer --exec
+    "loop_close A B" --exec optimize`` (align's LM trial steps and the
+    nn_search launches of each command), then the map editor: the outlier
+    selection over the whole map (ms, peak memory, the cKDTree reference),
+    min-cut and region-growing selections (within SEGMENT_RADIUS, at most
+    ``segment_cap`` candidates) around a floor point at the map's centre
+    against the same editor on the CPU, the CLI's min-cut selection (the
+    editor's defaults) against the CPU's, and ``map_editor
+    --select-object --save`` whose dump is loaded back. Files go under
+    ``work_dir``."""
+    from glim_tpu_torch.native import ply_read
+    from glim_tpu_torch.ops.nn_search import nn_search
+    from glim_tpu_torch.tools import interactive_viewer, map_editor, offline_viewer
+    from glim_tpu_torch.viewer import interactive_tools
+    from glim_tpu_torch.ops import knn
+    from glim_tpu_torch.viewer.map_editor import MapEditor
+
+    _release_pipelines()
+    dev = torch.device(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    out = os.path.join(work_dir, "offline")
+    os.makedirs(out, exist_ok=True)
+    res = dict(on_card=dev.type == "cuda")
+
+    t0 = time.perf_counter()
+    ov = offline_viewer.main(["open", dump, "--optimize", "--ply", os.path.join(out, "map.ply"),
+                              "--save", os.path.join(out, "opened"), "--device", str(dev)])
+    n = len(ov.global_mapping.submaps)
+    res.update(open_seconds=time.perf_counter() - t0, submaps=n,
+               ply_points=len(ply_read(os.path.join(out, "map.ply"))),
+               export_points=len(ov.global_mapping.export_points()),
+               opened_saved=os.path.exists(os.path.join(out, "opened", "graph.txt")),
+               opened_poses_finite=bool(all(np.all(np.isfinite(T))
+                                            for T in ov.global_mapping.poses)))
+    del ov
+
+    nn_search.kernel_launches = 0
+    t0 = time.perf_counter()
+    mv = offline_viewer.main(["merge", dump, dump, "--save", os.path.join(out, "merged"),
+                              "--device", str(dev)])
+    gm = mv.global_mapping
+    res.update(merge_seconds=time.perf_counter() - t0, merge_launches=nn_search.kernel_launches,
+               merged_submaps=len(gm.submaps),
+               merged_sessions=[s.session_id for s in gm.submaps],
+               cross_matching=sum((i < n) != (j < n) for i, j in gm.matching_factors),
+               merged_poses_finite=bool(all(np.all(np.isfinite(T)) for T in gm.poses)))
+    del mv, gm
+
+    MLC = interactive_tools.ManualLoopClose
+    align = MLC.align
+    aligns = []
+
+    def counted_align(self, *a, **k):
+        n0 = nn_search.kernel_launches
+        t1 = time.perf_counter()
+        r = align(self, *a, **k)
+        aligns.append(dict(trial_steps=list(r.lm_trial_steps),
+                           launches=nn_search.kernel_launches - n0,
+                           ms=1e3 * (time.perf_counter() - t1),
+                           inlier_fraction=r.inlier_fraction))
+        return r
+    MLC.align = counted_align
+    nn_search.kernel_launches = 0
+    try:
+        repl = interactive_viewer.main([dump, "--exec", f"loop_close {REPL_TARGET} {REPL_SOURCE}",
+                                        "--exec", "optimize", "--device", str(dev)])
+    finally:
+        MLC.align = align
+    res.update(repl_results=[(c["cmd"], o) for c, o in repl["results"]], aligns=aligns,
+               repl_launches=nn_search.kernel_launches,
+               repl_between=len(repl["viewer"].gm.between_factors),
+               align_capacity=int(repl["viewer"].gm.submaps[0].frame.points.shape[0]),
+               align_valid=[int(repl["viewer"].gm.submaps[i].frame.mask.sum())
+                            for i in (REPL_TARGET, REPL_SOURCE)])
+    del repl
+
+    ed = MapEditor(device=dev)
+    ed.open(dump)
+    npts = len(ed.points)
+    if dev.type == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    ed.select_outliers(k=OUTLIER_K)
+    sync()
+    res.update(map_points=npts, outlier_ms=1e3 * (time.perf_counter() - t0),
+               outlier_tile=knn._boxed_tile(npts),
+               outlier_peak_mib=((torch.cuda.max_memory_allocated(dev) - base) / 2**20
+                                 if dev.type == "cuda" else None))
+    outliers = set(ed.selected)
+    ref = outlier_reference(ed.points.astype(np.float32))
+    res.update(outliers=len(outliers), outliers_reference=len(ref),
+               outlier_jaccard=_jaccard(outliers, ref))
+
+    # The seed: the lowest point within 1.5 m (in x, y) of the map's centre,
+    # on the floor, where both segmentations grow a region.
+    near = np.where(np.linalg.norm(ed.points[:, :2] - ed.points[:, :2].mean(axis=0),
+                                   axis=1) < 1.5)[0]
+    seed = ed.points[near[np.argmin(ed.points[near, 2])]]
+    cpu = MapEditor(device="cpu")
+    cpu.open(dump)
+    segments = {}
+    for method in ("min_cut", "region_growing"):
+        sel = {}
+        for name, editor in (("card", ed), ("cpu", cpu)):
+            editor.clear_selection()
+            t0 = time.perf_counter()
+            editor.select_segmentation(seed, method=method, radius=SEGMENT_RADIUS,
+                                       cap=segment_cap)
+            sel[name] = (set(editor.selected), 1e3 * (time.perf_counter() - t0))
+        segments[method] = dict(selected=len(sel["card"][0]), cpu_selected=len(sel["cpu"][0]),
+                                candidates=len(ed.cells_near(seed, SEGMENT_RADIUS)),
+                                ms=sel["card"][1], cpu_ms=sel["cpu"][1],
+                                jaccard=_jaccard(sel["card"][0], sel["cpu"][0]))
+    res["segments"] = segments
+    # The CLI's selection: min-cut at the editor's default radius and cap,
+    # on the card and on the CPU.
+    sel = {}
+    for name, editor in (("card", ed), ("cpu", cpu)):
+        editor.clear_selection()
+        editor.select_segmentation(seed, method="min_cut")
+        sel[name] = set(editor.selected)
+    del cpu
+    object_sel = sel["card"]
+    res.update(object_selected=len(object_sel), object_cpu_selected=len(sel["cpu"]),
+               object_candidates=min(len(ed.cells_near(seed, OBJECT_RADIUS)), OBJECT_CAP),
+               object_jaccard=_jaccard(object_sel, sel["cpu"]))
+
+    edited = os.path.join(out, "edited")
+    map_editor.main([dump, "--select-object", *(str(float(v)) for v in seed),
+                     "--method", "min_cut", "--save", edited, "--device", str(dev)])
+    back = MapEditor(device=dev)
+    back.open(edited)
+    keep = np.ones(npts, bool)
+    keep[sorted(object_sel)] = False
+    res.update(edited_points=len(back.points), deleted=len(object_sel),
+               edited_exact=bool(len(back.points) == int(keep.sum())
+                                 and np.array_equal(back.points, ed.points[keep])))
+    return res
+
+
+def check_offline_tools(res: dict) -> None:
+    """Phase 12c's failure conditions: the PLY holds export_points' count;
+    the merge doubles the submaps with session ids 0 then 1, links the
+    sessions by matching factors and launches no kernel; the REPL's
+    loop_close and optimize succeed, align made exactly sum over its LM
+    passes of (1 + trial steps) + 2 nn_search launches and the REPL no
+    other (on the card); the outliers agree with the cKDTree reference to
+    OUTLIER_JACCARD, both segmentations grow beyond their seed and agree
+    with the CPU editor's to SEGMENT_JACCARD; the edited dump loads with
+    exactly the deleted points gone; the CLI's min-cut selection (the
+    editor's default radius and cap) agrees with the CPU editor's to
+    SEGMENT_JACCARD."""
+    name = "offline tools"
+    n = res["submaps"]
+    if not (res["ply_points"] == res["export_points"] > 0 and res["opened_saved"]
+            and res["opened_poses_finite"]):
+        raise AssertionError(f"{name}: open: PLY {res['ply_points']} points, export_points "
+                             f"{res['export_points']}, saved {res['opened_saved']}")
+    if not (res["merged_submaps"] == 2 * n and res["merged_sessions"] == [0] * n + [1] * n
+            and res["cross_matching"] > 0 and res["merged_poses_finite"]
+            and res["merge_launches"] == 0):
+        raise AssertionError(f"{name}: merge: {res['merged_submaps']} submaps, sessions "
+                             f"{res['merged_sessions']}, {res['cross_matching']} cross-session "
+                             f"factors, {res['merge_launches']} launches")
+    got = dict(res["repl_results"])
+    if [c for c, _ in res["repl_results"]] != ["loop_close", "optimize"] or not (
+            got["loop_close"]["ok"] and got["optimize"]["ok"]) or res["repl_between"] < 1:
+        raise AssertionError(f"{name}: REPL results {res['repl_results']}")
+    if len(res["aligns"]) != 1:
+        raise AssertionError(f"{name}: {len(res['aligns'])} alignments")
+    a = res["aligns"][0]
+    expect = sum(1 + s for s in a["trial_steps"]) + 2
+    if res["on_card"] and not (a["launches"] == expect == res["repl_launches"]):
+        raise AssertionError(f"{name}: align made {a['launches']} nn_search launches and the "
+                             f"REPL {res['repl_launches']}, want {expect} "
+                             f"(trial steps {a['trial_steps']})")
+    if not res["outlier_jaccard"] >= OUTLIER_JACCARD or not res["outliers"]:
+        raise AssertionError(f"{name}: {res['outliers']} outliers, the reference "
+                             f"{res['outliers_reference']}, Jaccard {res['outlier_jaccard']}")
+    for method, s in res["segments"].items():
+        if not s["selected"] > 1 or not s["jaccard"] >= SEGMENT_JACCARD:
+            raise AssertionError(f"{name}: {method} selected {s['selected']} points, the CPU "
+                                 f"{s['cpu_selected']}, Jaccard {s['jaccard']}")
+    if not res["object_jaccard"] >= SEGMENT_JACCARD:
+        raise AssertionError(f"{name}: the CLI's min_cut selected {res['object_selected']} "
+                             f"points, the CPU {res['object_cpu_selected']}, Jaccard "
+                             f"{res['object_jaccard']}")
+    if not res["edited_exact"]:
+        raise AssertionError(f"{name}: the edited dump holds {res['edited_points']} points, "
+                             f"{res['map_points']} less {res['deleted']} deleted expected")
+
+
+def _print_offline_tools(res: dict, card: str) -> None:
+    print("offline: " + json.dumps(res))
+    a = res["aligns"][0] if res["aligns"] else {}
+    seg = res["segments"]
+    peak = res["outlier_peak_mib"]
+    print(f"offline [{card}]: open + optimize + ply + save {res['open_seconds']:.3f} s "
+          f"({res['submaps']} submaps, {res['ply_points']} points); merge "
+          f"{res['merge_seconds']:.3f} s ({res['merged_submaps']} submaps, "
+          f"{res['cross_matching']} cross-session factors, {res['merge_launches']} launches); "
+          f"REPL align at Q = N = {res['align_capacity']} ({res['align_valid']} valid) "
+          f"{a.get('ms')} ms, trial steps {a.get('trial_steps')}, {a.get('launches')} launches "
+          f"({res['repl_launches']} in the REPL), inlier fraction {a.get('inlier_fraction')}")
+    print(f"offline [{card}]: outliers over {res['map_points']} map points in "
+          f"{res['outlier_ms']:.1f} ms (tile {res['outlier_tile']}, peak "
+          + (f"{peak:.1f} MiB" if peak is not None else "not measured")
+          + f"): {res['outliers']} (cKDTree {res['outliers_reference']}, Jaccard "
+          f"{res['outlier_jaccard']:.5f}); within {SEGMENT_RADIUS} m "
+          f"({seg['min_cut']['candidates']} candidates) min_cut {seg['min_cut']['selected']} in "
+          f"{seg['min_cut']['ms']:.1f} ms (CPU {seg['min_cut']['cpu_ms']:.1f}, Jaccard "
+          f"{seg['min_cut']['jaccard']:.4f}), region_growing "
+          f"{seg['region_growing']['selected']} in {seg['region_growing']['ms']:.1f} ms (CPU "
+          f"{seg['region_growing']['cpu_ms']:.1f}, Jaccard {seg['region_growing']['jaccard']:.4f}); "
+          f"the CLI's min_cut within {OBJECT_RADIUS} m ({res['object_candidates']} candidates) "
+          f"{res['object_selected']} (CPU {res['object_cpu_selected']}, Jaccard "
+          f"{res['object_jaccard']:.4f}); edited dump {res['edited_points']} points = {res['map_points']} - {res['deleted']}")
+
+
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -2313,6 +2986,36 @@ def ab_async(card: str, order=(False, True, True, False)) -> list:
     return rows
 
 
+_ASYNC_PHASES = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke as c
+a = c.run_async_default("cuda")
+c.check_async(a)
+e = c.run_extensions("cuda")
+c.check_extensions(e)
+print("AB " + json.dumps(dict(phase6_scans_per_s=a["scans_per_s"], phase6_ate=a["ate"],
+                              phase11a_scans_per_s=e["scans_per_s"], phase11a_ate=e["ate"])))
+"""
+
+
+def ab_async_phases(card: str, parent_dir: str) -> list:
+    """Phases 6 and 11a of the tree in ``parent_dir`` and of this one, each
+    run in a fresh process from its tree's root, parent / change / change /
+    parent: their scans/s and ATEs, to compare the two commits' async
+    pipelines on one card in one call."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for tree, d in (("parent", parent_dir), ("change", here), ("change", here),
+                    ("parent", parent_dir)):
+        out = subprocess.run([sys.executable, "-c", _ASYNC_PHASES], cwd=d, check=True,
+                             stdout=subprocess.PIPE, text=True).stdout
+        line = [ln for ln in out.splitlines() if ln.startswith("AB ")][-1]
+        rows.append(dict(tree=tree, **json.loads(line[3:])))
+        print(f"ab-async [{card}]: " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2327,6 +3030,11 @@ def main() -> int:
         run_eval.main(["--matrix", "--window-study", "--device", "cuda", "--out", out])
         with open(out) as f:
             print(f.read())
+        return 0
+    if args[:1] == ["--ab-async"]:
+        card = _card()
+        print(card)
+        ab_async_phases(card, args[1])
         return 0
     if args[:1] == ["--profile"]:
         card = _card()
@@ -2436,7 +3144,21 @@ def main() -> int:
     _print_live_corrections(cres, card)
     check_live_corrections(cres)
 
-    # --- 12. summary ---
+    # --- 12. ROS bag playback, the ROS node and the offline map tools ---
+    bres = run_bag("cuda")
+    try:
+        _print_bag(bres, ares, card)
+        check_bag(bres, ares)
+        nres = run_ros_node("cuda")
+        _print_ros_node(nres, card)
+        check_ros_node(nres)
+        ores = run_offline_tools("cuda", bres["dump"], bres["work_dir"])
+        _print_offline_tools(ores, card)
+        check_offline_tools(ores)
+    finally:
+        shutil.rmtree(bres["work_dir"], ignore_errors=True)
+
+    # --- 13. summary ---
     print(json.dumps({"kernels": [{
         "name": "nn_search", "route": "cuda",
         "source": "glim_tpu_torch/csrc/nn_search.cu",
@@ -2453,6 +3175,7 @@ def main() -> int:
         "launches_pose_graph_registrations": gres9["kernel_launches"] - gres9["between_infos"],
         "launches_manual_loop_close": cres["kernel_launches"],
         "launches_extension_loops": lres["kernel_launches"],
+        "launches_offline_loop_close": ores["repl_launches"],
         "max_abs_err": max_err, **timing}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -5,6 +5,9 @@ Twin of ``glim_tpu/ops/knn.py``: distances by the expansion
 self-kNN that searches a band of the Z-order-sorted cloud. ``lax.top_k``
 breaks ties toward the lower index and ``torch.topk`` promises no order, so
 the k smallest are taken by a ``topk`` of unique (value, column) keys.
+``knn_self_boxed`` is the port's own exact self-kNN of a large cloud (the
+map editor's outlier selection over a whole map): each tile of queries is
+searched only against the points in its bounding box grown by a radius.
 """
 
 from __future__ import annotations
@@ -15,6 +18,18 @@ import torch
 
 _TILE = 1024
 _INT32_MAX = 2**31 - 1
+# Device bytes of one query tile's int64 (distance, column) keys in
+# ``knn_self_boxed``, were the tile searched against the whole cloud (a box
+# holding all of it, or the re-search); the tile's other temporaries add
+# about 1.5x more.
+_BOXED_KEY_BYTES = 1 << 30
+
+
+def _boxed_tile(n: int) -> int:
+    """Query rows a tile of ``knn_self_boxed`` over ``n`` points: the largest
+    power of two, 16 to 1024, whose 8 B x tile x n keys fit _BOXED_KEY_BYTES."""
+    rows = max(1, _BOXED_KEY_BYTES // (8 * max(n, 1)))
+    return int(min(_TILE, max(16, 1 << (rows.bit_length() - 1))))
 
 
 def _k_smallest(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -35,17 +50,18 @@ def _k_smallest(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def knn_search(queries: torch.Tensor, query_mask: torch.Tensor,
                targets: torch.Tensor, target_mask: torch.Tensor,
-               k: int, exclude_self: bool = False
+               k: int, exclude_self: bool = False, tile: int = _TILE
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest targets per query -> (indices (Q, k) int32, sq_dists (Q, k)).
-    Invalid queries get index 0 / +inf."""
+    Invalid queries get index 0 / +inf. ``tile`` query rows are searched at
+    a time: their (tile, N) distances and int64 keys bound the memory."""
     Q = queries.shape[0]
     N = targets.shape[0]
     t_sq = torch.sum(targets * targets, dim=-1)
     t_invalid = torch.where(target_mask, 0.0, float("inf"))
     idx_out, d2_out = [], []
-    for base in range(0, Q, _TILE):
-        qt = queries[base:base + _TILE]
+    for base in range(0, Q, tile):
+        qt = queries[base:base + tile]
         q_sq = torch.sum(qt * qt, dim=-1, keepdim=True)
         d2 = q_sq + t_sq[None, :] - 2.0 * (qt @ targets.T)
         d2 = torch.clamp(d2, min=0.0) + t_invalid[None, :]
@@ -122,3 +138,51 @@ def knn_self(points: torch.Tensor, mask: torch.Tensor, k: int
     """Exact kNN graph of a cloud against itself, the self-match included
     as neighbour 0."""
     return knn_search(points, mask, points, mask, k=k, exclude_self=False)
+
+
+def knn_self_boxed(points: torch.Tensor, k: int, radius: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN graph of an all-valid cloud against itself (the self-match
+    included), without an N x N search: the points are ordered along a
+    Z-order curve of ``radius`` cells, and each tile of ``_boxed_tile(N)``
+    queries is searched (``knn_search``) against the points inside its bounding box
+    grown by ``radius``. A point outside that box lies more than ``radius``
+    from every query of the tile, so a query whose k-th neighbour in the box
+    is within ``radius`` has its exact k nearest; the others (isolated
+    points, or a box with fewer than k points) are searched against the
+    whole cloud. Each search runs on coordinates centred on its tile's box
+    (the re-search on the cloud's) (the expansion |q|^2 + |t|^2 - 2 q.t loses ~1e-4 m^2 to cancellation at 30 m
+    from the origin), and the squared distances returned are those of the
+    neighbours found, by difference. Returns (indices (N, k) int32,
+    squared distances (N, k)), ties to the lower index as ``knn_self``. One
+    host read a tile (the box's size) and one for the re-searched queries."""
+    N = points.shape[0]
+    dev = points.device
+    tile = _boxed_tile(N)
+    order = torch.sort(morton_code(torch.floor(points / radius).to(torch.int32)),
+                       stable=True).indices
+    ps = points[order]
+    ones = torch.ones(N, dtype=torch.bool, device=dev)
+    idx = torch.empty((N, k), dtype=torch.int32, device=dev)   # original indices
+    far = torch.ones(N, dtype=torch.bool, device=dev)           # to search everywhere
+    for base in range(0, N, tile):
+        q = ps[base:base + tile]
+        lo = q.min(dim=0).values - radius
+        hi = q.max(dim=0).values + radius
+        box = torch.nonzero(torch.all((ps >= lo) & (ps <= hi), dim=1)).reshape(-1)
+        if box.shape[0] < k:
+            continue
+        box = box[torch.argsort(order[box])]      # ties to the lower original index
+        c = (lo + hi) / 2
+        i_t, d_t = knn_search(q - c, ones[:q.shape[0]], ps[box] - c, ones[:box.shape[0]], k)
+        idx[base:base + q.shape[0]] = order[box[i_t.long()]].to(torch.int32)
+        far[base:base + q.shape[0]] = d_t[:, -1] > radius * radius
+    again = torch.nonzero(far).reshape(-1)
+    if again.shape[0]:
+        c = (points.min(dim=0).values + points.max(dim=0).values) / 2
+        idx[again] = knn_search(ps[again] - c, ones[:again.shape[0]], points - c, ones, k,
+                                tile=tile)[0]
+    out_idx = torch.empty_like(idx)
+    out_idx[order] = idx
+    diff = points[:, None, :] - points[out_idx.long()]
+    return out_idx, torch.sum(diff * diff, dim=-1)

@@ -1,9 +1,16 @@
-"""Offline dataset runner — the ``glim_rosbag`` equivalent of the port.
+"""Offline dataset and bag runner — the ``glim_rosbag`` equivalent of the port.
 
-Twin of ``glim_tpu/tools/glim_runner.py``: plays a recorded dataset through
-the asynchronous ``GlimTorch`` pipeline faster than real time, throttled by
-the pipeline's ``workload()`` (reference: docs/quickstart.md:70-79),
-drains it with ``wait()`` and saves the dump.
+Twin of ``glim_tpu/tools/glim_runner.py``: plays a recorded dataset or ROS
+bag through the asynchronous ``GlimTorch`` pipeline faster than real time,
+throttled by the pipeline's ``workload()`` (reference:
+docs/quickstart.md:70-79), drains it with ``wait()`` and saves the dump.
+
+A ROS bag (ROS1 ``.bag``, a rosbag2 ``.db3`` or its directory, ``.mcap``)
+streams in recorded order through ``io/rosbag.py``: PointCloud2 and Imu
+topics are found by type unless ``--points-topic`` / ``--imu-topic`` name
+them, and the IMU is conditioned as the live node conditions it
+(``ros/conditioning.py``: acc_scale with g-unit auto-detection, the
+imu / points time offsets of config_ros).
 
 Dataset layout:
   dataset/
@@ -12,9 +19,10 @@ Dataset layout:
     stamps.csv                # per-scan stamps (row i -> scans/%06i)
     [times/NNNNNN.npy]        # optional per-point times
 
-Usage: python -m glim_tpu_torch.tools.glim_runner <dataset_dir> [--config DIR]
+Usage: python -m glim_tpu_torch.tools.glim_runner <dataset_dir | bag> [--config DIR]
        [--dump DIR] [--synthetic N_SECONDS] [--max-workload N] [--device cuda|cpu]
        [--viewer-stream FILE.jsonl] [--commands FILE.jsonl]
+       [--points-topic TOPIC] [--imu-topic TOPIC]
 
 The pipeline runs on the card unless ``--device cpu`` is given.
 ``--viewer-stream`` writes the run stream (``viewer/standard_viewer.py``;
@@ -22,9 +30,7 @@ replay it with ``viewer/watch.html`` or ``tools/watch.py``).
 ``--commands`` tails a JSONL file of live corrections applied to the
 running graph (``viewer/interactive_viewer.execute_command``; ``pause`` /
 ``resume`` / ``step`` act on the feed loop). The pipeline's ``ok()`` going
-false (an extension module's request) ends the feed. ROS bag playback
-(``io/rosbag``, ``ros/conditioning``) is not ported: it raises, naming the
-modules it needs.
+false (an extension module's request) ends the feed.
 """
 
 from __future__ import annotations
@@ -155,6 +161,21 @@ def _playback_gate(controls, poll_commands) -> None:
         controls["step"] -= 1
 
 
+def _after_scan(glim, max_workload: int, poll_commands, controls) -> bool:
+    """After a scan is fed: poll the commands, pass the playback gate, wait
+    while the workload exceeds ``max_workload``. False when the pipeline's
+    ``ok()`` went false (an extension module's request to stop)."""
+    poll_commands()
+    if controls is not None:
+        _playback_gate(controls, poll_commands)
+    while glim.workload() > max_workload:
+        time.sleep(0.01)
+    if not glim.ok():
+        print("extension module requested shutdown")
+        return False
+    return True
+
+
 def play(glim, imu: np.ndarray, scans, max_workload: int, poll_commands=None,
          controls=None, on_scan=None) -> int:
     """Feed every scan with the IMU up to 0.2 s past its stamp, waiting
@@ -175,15 +196,53 @@ def play(glim, imu: np.ndarray, scans, max_workload: int, poll_commands=None,
             imu_idx += 1
         glim.insert_frame(RawPoints(stamp=stamp, points=pts, times=times))
         n += 1
-        poll_commands()
-        if controls is not None:
-            _playback_gate(controls, poll_commands)
-        while glim.workload() > max_workload:
-            time.sleep(0.01)
-        if not glim.ok():
-            print("extension module requested shutdown")
+        if not _after_scan(glim, max_workload, poll_commands, controls):
             break
     return n
+
+
+def play_bag(glim, path: str, max_workload: int, points_topic=None, imu_topic=None,
+             poll_commands=None, controls=None, on_scan=None) -> dict:
+    """Stream a ROS bag into the pipeline in recorded order (the
+    reference's glim_rosbag): IMU samples through the ``ImuConditioner``
+    the live node uses, images decoded, each scan followed by the command
+    poll, the playback gate and the workload wait, as ``play`` does.
+    Returns the scans fed, the seconds spent reading and decoding the bag
+    and the IMU's acc_scale (detected when config_ros gives 0)."""
+    from glim_tpu_torch.io.rosbag import iter_sensor_messages
+    from glim_tpu_torch.ros.conditioning import ImuConditioner
+
+    poll_commands = poll_commands or (lambda: None)
+    ros_cfg = glim.config.get_config("config_ros")
+    g = lambda k, d: ros_cfg.param("glim_ros", k, d)  # noqa: E731
+    imu_cond = ImuConditioner(float(g("acc_scale", 0.0)), float(g("imu_time_offset", 0.0)))
+    points_time_offset = float(g("points_time_offset", 0.0))
+    messages = iter_sensor_messages(path, points_topic, imu_topic)
+    n, decode_s = 0, 0.0
+    while True:
+        t0 = time.perf_counter()
+        item = next(messages, None)
+        decode_s += time.perf_counter() - t0
+        if item is None:
+            break
+        kind, msg = item
+        if kind == "imu":
+            for sample in imu_cond.condition(msg.stamp, msg.linear_acceleration,
+                                             msg.angular_velocity):
+                glim.insert_imu(*sample)
+            continue
+        if kind == "image":
+            glim.insert_image(msg.stamp, msg.to_array())
+            continue
+        if on_scan is not None:
+            on_scan(n)
+        if points_time_offset != 0.0:
+            msg.stamp = msg.stamp + points_time_offset
+        glim.insert_frame(msg)
+        n += 1
+        if not _after_scan(glim, max_workload, poll_commands, controls):
+            break
+    return dict(scans=n, decode_seconds=decode_s, acc_scale=imu_cond.acc_scale)
 
 
 def main(argv=None, on_scan=None) -> dict:
@@ -191,11 +250,12 @@ def main(argv=None, on_scan=None) -> dict:
     the pipeline (``glim``), ``scans``, ``seconds`` (feed + drain),
     ``wait_seconds`` (the drain), ``save_seconds``, ``dump``, the
     ``viewer`` (with ``--viewer-stream``) and ``command_results`` (the
-    (command, result) pairs of ``--commands``). ``on_scan(i)`` runs before
-    scan i is fed."""
+    (command, result) pairs of ``--commands``); a bag's run adds
+    ``decode_seconds`` and ``acc_scale`` (``play_bag``). ``on_scan(i)``
+    runs before scan i is fed."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("dataset", nargs="?", help="dataset directory")
+    ap.add_argument("dataset", nargs="?", help="dataset directory or ROS bag")
     ap.add_argument("--config", default=None, help="config directory")
     ap.add_argument("--dump", default=os.path.join(tempfile.gettempdir(),
                                                    "glim_tpu_torch_dump"))
@@ -204,8 +264,10 @@ def main(argv=None, on_scan=None) -> dict:
     ap.add_argument("--max-workload", type=int, default=10,
                     help="throttle input when pipeline workload exceeds this")
     ap.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
-    ap.add_argument("--points-topic", default=None, help="bag playback (not ported)")
-    ap.add_argument("--imu-topic", default=None, help="bag playback (not ported)")
+    ap.add_argument("--points-topic", default=None,
+                    help="bag playback: the PointCloud2 topic (default: found by type)")
+    ap.add_argument("--imu-topic", default=None,
+                    help="bag playback: the Imu topic (default: found by type)")
     ap.add_argument("--viewer-stream", default=None, metavar="FILE.jsonl",
                     help="write a watchable run stream (replay with "
                          "glim_tpu_torch/viewer/watch.html or tools/watch.py)")
@@ -216,12 +278,8 @@ def main(argv=None, on_scan=None) -> dict:
     args = ap.parse_args(argv)
 
     if args.synthetic <= 0 and not args.dataset:
-        ap.error("dataset directory or --synthetic required")
-    if args.synthetic <= 0 and (_is_bag(args.dataset) or args.points_topic
-                                or args.imu_topic):
-        raise NotImplementedError("bag playback needs glim_tpu/io/rosbag.py and "
-                                  "glim_tpu/ros/conditioning.py, which are not ported to "
-                                  "glim_tpu_torch yet")
+        ap.error("dataset directory, bag, or --synthetic required")
+    bag = args.synthetic <= 0 and _is_bag(args.dataset)
 
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.utils.debug import print_system_info
@@ -233,7 +291,7 @@ def main(argv=None, on_scan=None) -> dict:
                                 scene_points=120000)
         imu = seq.imu
         scans = [(s.stamp, s.points, s.times) for s in seq.scans]
-    else:
+    elif not bag:
         imu, scans = load_dataset(args.dataset)
 
     glim = GlimTorch(config_path=args.config, async_mode=True, device=args.device)
@@ -246,7 +304,13 @@ def main(argv=None, on_scan=None) -> dict:
     controls = {"paused": False, "step": 0}
     poll_commands = _make_command_poller(glim, args.commands, controls)
     t0 = time.perf_counter()
-    n = play(glim, imu, scans, args.max_workload, poll_commands, controls, on_scan)
+    bag_run = {}
+    if bag:
+        bag_run = play_bag(glim, args.dataset, args.max_workload, args.points_topic,
+                           args.imu_topic, poll_commands, controls, on_scan)
+        n = bag_run["scans"]
+    else:
+        n = play(glim, imu, scans, args.max_workload, poll_commands, controls, on_scan)
     t_wait = time.perf_counter()
     glim.wait()
     t_end = time.perf_counter()
@@ -261,7 +325,8 @@ def main(argv=None, on_scan=None) -> dict:
     print(f"dump saved to {args.dump}")
     return dict(glim=glim, scans=n, seconds=elapsed, wait_seconds=t_end - t_wait,
                 save_seconds=save_s, dump=args.dump, viewer=viewer,
-                command_results=poll_commands.results)
+                command_results=poll_commands.results,
+                **{k: v for k, v in bag_run.items() if k != "scans"})
 
 
 if __name__ == "__main__":

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import copy
 import enum
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -228,6 +229,9 @@ class EstimationFrame:
         self.custom_data = {} if custom_data is None else custom_data
         # In-flight packed-state copy: (HostCopy, need_T, need_v, need_b).
         self._state_pending = None
+        # Serializes fetch_state among the threads that take in this frame
+        # (a shallow clone shares it, as it shares the device state).
+        self._state_lock = threading.Lock()
 
     @property
     def T_world_lidar(self) -> np.ndarray:
@@ -322,25 +326,39 @@ class EstimationFrame:
         if ps is not None:
             self._state_pending = (HostCopy(ps[0]),) + ps[1:]
 
+    def state_ready(self) -> bool:
+        """True when ``fetch_state()`` will not wait on the device: the copy
+        ``fetch_state_async`` started has landed, or the state is cached."""
+        ps = self._state_pending
+        if ps is not None:
+            return ps[0].ready()
+        return all(cache is not None or dev is None for cache, dev in (
+            (self._T_world_lidar, self.device_T_world_lidar),
+            (self._v_world_imu, self.device_v_world_imu),
+            (self._imu_bias, self.device_imu_bias)))
+
     def fetch_state(self) -> None:
         """Fill the pose/velocity/bias host caches from one packed copy
         (the one ``fetch_state_async`` started, if any); no-op for values
-        already cached."""
-        ps = self._state_pending
-        if ps is None:
-            ps = self._pack_state()
+        already cached. Threads that take in the same frame (the odometry
+        worker publishing it, a viewer or the ROS node) do so one at a
+        time; other frames do not wait."""
+        with self._state_lock:
+            ps = self._state_pending
             if ps is None:
-                return
-            ps = (HostCopy(ps[0]),) + ps[1:]
-        self._state_pending = None
-        host, need_T, need_v, need_b = ps
-        packed = np.asarray(host.numpy(), np.float64)
-        if need_T and self._T_world_lidar is None:
-            self._T_world_lidar = packed[:16].reshape(4, 4)
-        if need_v and self._v_world_imu is None:
-            self._v_world_imu = packed[16:19]
-        if need_b and self._imu_bias is None:
-            self._imu_bias = packed[19:25]
+                ps = self._pack_state()
+                if ps is None:
+                    return
+                ps = (HostCopy(ps[0]),) + ps[1:]
+            self._state_pending = None
+            host, need_T, need_v, need_b = ps
+            packed = np.asarray(host.numpy(), np.float64)
+            if need_T and self._T_world_lidar is None:
+                self._T_world_lidar = packed[:16].reshape(4, 4)
+            if need_v and self._v_world_imu is None:
+                self._v_world_imu = packed[16:19]
+            if need_b and self._imu_bias is None:
+                self._imu_bias = packed[19:25]
 
     def T_world_sensor(self) -> np.ndarray:
         if self.frame_id == FrameID.LIDAR:

@@ -73,6 +73,7 @@ def _ensure_builtins_imported(kind: str) -> None:
                                "glim_tpu_torch.mapping.global_mapping_pose_graph"],
             "extension": ["glim_tpu_torch.viewer.standard_viewer",
                           "glim_tpu_torch.viewer.memory_monitor",
+                          "glim_tpu_torch.ros.rviz_viewer",
                           "glim_tpu_torch.common.imu_validation",
                           "glim_tpu_torch.ext.scan_context",
                           "glim_tpu_torch.ext.image_loop",

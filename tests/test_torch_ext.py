@@ -340,13 +340,19 @@ def test_all_seven_extensions_load_and_detach(slots_unchanged):
 
 
 def test_unknown_extension_raises_naming_it(tmp_path):
+    """A name the port lacks raises, naming it; librviz_viewer.so (ported
+    with ros/rviz_viewer.py) loads beside the others."""
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.utils.config import create_default_config_dir
 
     cfg = create_default_config_dir(str(tmp_path / "cfg"))
-    with pytest.raises(NotImplementedError, match="librviz_viewer.so"):
-        GlimTorch(cfg, extension_modules=["libvelocity_suppressor.so", "librviz_viewer.so"],
+    with pytest.raises(NotImplementedError, match="libno_such_module.so"):
+        GlimTorch(cfg, extension_modules=["libvelocity_suppressor.so", "libno_such_module.so"],
                   device="cpu")
+    glim = GlimTorch(cfg, extension_modules=["libvelocity_suppressor.so", "librviz_viewer.so"],
+                     device="cpu")
+    assert [type(e).__name__ for e in glim.extensions] == ["VelocitySuppressor", "RvizViewer"]
+    glim.wait()
 
 
 def test_translation_prior_request_skipped_by_the_pose_graph():

@@ -142,3 +142,74 @@ def test_lie_np_is_equal():
         np.testing.assert_array_equal(t_lie.se3_adjoint(T), j_lie.se3_adjoint(T))
         np.testing.assert_array_equal(t_lie.se3_interpolate(np.eye(4), T, 0.3),
                                       j_lie.se3_interpolate(np.eye(4), T, 0.3))
+
+
+def test_interpolation_helper_is_equal():
+    """The port's InterpolationHelper against the JAX package's on the same
+    stamps: the same tri-state results and brackets, exactly."""
+    from glim_tpu.utils.interpolation import InterpolationHelper as JHelper
+    from glim_tpu_torch.utils.interpolation import InterpolationHelper as THelper
+
+    rng = np.random.default_rng(7)
+    stamps = np.cumsum(rng.uniform(0.01, 0.1, 40))
+    hj, ht = JHelper(), THelper()
+    for t in stamps:
+        hj.add(t, t * 10.0)
+        ht.add(t, t * 10.0)
+    queries = np.concatenate([[stamps[0] - 0.5, stamps[-1] + 0.5], stamps[[0, 7, 39]],
+                              rng.uniform(stamps[0], stamps[-1], 20)])
+    for q in queries:
+        sj, sr = hj.find(q), ht.find(q)
+        assert sr[0].name == sj[0].name and sr[1:] == sj[1:]
+    for cut, margin in ((stamps[10], 1), (stamps[20] + 1e-3, 2)):
+        hj.erase_before(cut, margin)
+        ht.erase_before(cut, margin)
+        assert (len(ht), ht.leftmost_time(), ht.rightmost_time()) == \
+            (len(hj), hj.leftmost_time(), hj.rightmost_time())
+
+
+@pytest.mark.parametrize("model", ["plumb_bob", "fisheye", "none"])
+def test_camera_model_is_equal(model, tmp_path):
+    """The port's CameraModel against the JAX package's: projection,
+    distortion and its inverse, LiDAR extrinsics and from_config, equal to
+    f64 rounding (atol 1e-12: the same numpy expressions)."""
+    from glim_tpu.utils.camera import CameraModel as JCam
+    from glim_tpu.utils.config import GlobalConfig as JGC
+    from glim_tpu.utils.config import create_default_config_dir as j_create
+    from glim_tpu_torch.utils.camera import CameraModel as TCam
+    from glim_tpu_torch.utils.config import GlobalConfig as TGC
+    from glim_tpu_torch.utils.config import create_default_config_dir as t_create
+
+    rng = np.random.default_rng(8)
+    coeffs = {"plumb_bob": [-0.02, 0.005, 0.001, -0.002, 0.0001],
+              "fisheye": [0.01, -0.002, 0.0005, 0.0001], "none": [0.0] * 5}[model]
+    T = np.eye(4)
+    T[:3, 3] = [0.1, -0.05, 0.02]
+    kw = dict(intrinsics=np.array([500.0, 510.0, 320.0, 240.0]), distortion_model=model,
+              distortion_coeffs=np.array(coeffs), image_size=(640, 480), T_lidar_camera=T)
+    mj, mt = JCam(**kw), TCam(**kw)
+    pts = np.stack([rng.uniform(-3, 3, 300), rng.uniform(-2, 2, 300),
+                    rng.uniform(-1, 10, 300)], 1)
+    for a, b in zip(mt.project(pts), mj.project(pts)):
+        np.testing.assert_allclose(a, b, atol=F64_ATOL)
+    for a, b in zip(mt.project_lidar(pts), mj.project_lidar(pts)):
+        np.testing.assert_allclose(a, b, atol=F64_ATOL)
+    xn = rng.uniform(-0.5, 0.5, (100, 2))
+    np.testing.assert_allclose(mt.distort(xn), mj.distort(xn), atol=F64_ATOL)
+    np.testing.assert_allclose(mt.undistort(xn), mj.undistort(xn), atol=F64_ATOL)
+    uv = rng.uniform(0, 480, (50, 2))
+    np.testing.assert_allclose(mt.unproject(uv), mj.unproject(uv), atol=F64_ATOL)
+    np.testing.assert_allclose(mt.unproject(uv, np.full(50, 2.0)),
+                               mj.unproject(uv, np.full(50, 2.0)), atol=F64_ATOL)
+
+    try:
+        cj = JGC.instance(j_create(str(tmp_path / "j")), override=True).get_config("config_sensors")
+        ct = TGC.instance(t_create(str(tmp_path / "t")), override=True).get_config("config_sensors")
+        fj, ft = JCam.from_config(cj), TCam.from_config(ct)
+        for name in ("intrinsics", "distortion_coeffs", "T_lidar_camera"):
+            np.testing.assert_array_equal(getattr(ft, name), getattr(fj, name))
+        assert (ft.distortion_model, ft.image_size, ft.global_shutter) == \
+            (fj.distortion_model, fj.image_size, fj.global_shutter)
+    finally:
+        JGC.reset()
+        TGC.reset()

@@ -1,8 +1,9 @@
 """The port's offline runner (glim_tpu_torch/tools/glim_runner.py): a tiny
 synthetic run on the CPU whose dump the JAX package's ``load_dump`` reads,
 the dataset directory layout against the JAX runner's reader, the scan
-loaders against the JAX package's, and the runner options that need
-modules the port lacks."""
+loaders against the JAX package's, the runner options of the modules
+ported since (the viewer stream, live commands, ROS bag playback), and the
+extension names the port lacks."""
 
 import os
 
@@ -113,20 +114,22 @@ def test_scan_loaders_match_jax(tmp_path):
     (["--points-topic", "/points"], "rosbag"),
 ])
 def test_unported_runner_options_raise(tmp_path, argv, module):
-    """Bag playback still raises, naming the module it needs; the viewer
-    stream and the command file are ported and run (on a three-scan
-    dataset: a stream line a scan, a command answered after the first)."""
+    """The runner options of the modules ported since: the viewer stream,
+    the command file and (io/rosbag) a bag's points topic, each run on a
+    three-scan sequence (a stream line a scan, a command answered after the
+    first, the bag's three scans played into a dump)."""
     from glim_tpu_torch.io.synthetic import generate_sequence
     from glim_tpu_torch.tools import glim_runner
 
     ds = tmp_path / "ds"
-    if module == "rosbag":
-        ds.mkdir()
-        (ds / "stamps.csv").write_text("0.0\n")
-        with pytest.raises(NotImplementedError, match=module):
-            glim_runner.main([str(ds), "--device", "cpu"] + argv)
-        return
     seq = generate_sequence(duration=0.3, n_scan_points=300, scene_points=3000, seed=4)
+    if module == "rosbag":
+        from test_rosbag import make_db3
+        ds.mkdir()
+        make_db3(str(ds / "bag_0.db3"), _bag_messages(seq, ros1=False))
+        _check_bag_run(glim_runner.main([str(ds), "--device", "cpu", "--dump",
+                                         str(tmp_path / "d")] + argv), tmp_path / "d")
+        return
     glim_runner.save_dataset(str(ds), seq.imu, [(s.stamp, s.points, s.times)
                                                 for s in seq.scans])
     path = str(tmp_path / argv[1])
@@ -143,22 +146,61 @@ def test_unported_runner_options_raise(tmp_path, argv, module):
     run["glim"].wait()
 
 
-def test_bag_playback_raises(tmp_path):
-    from glim_tpu_torch.tools import glim_runner
+def _bag_messages(seq, ros1: bool):
+    """``seq`` as bag records (topic, type, stamp_ns, payload) in time order,
+    encoded by tests/test_rosbag.py's writers; each scan logged at its end."""
+    import test_rosbag as tr
 
-    (tmp_path / "run.bag").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="io/rosbag.py"):
-        glim_runner.main([str(tmp_path / "run.bag"), "--device", "cpu"])
+    pc2, imu = ((tr.encode_pointcloud2_ros1, tr.encode_imu_ros1) if ros1
+                else (tr.encode_pointcloud2, tr.encode_imu))
+    sep = "/" if ros1 else "/msg/"
+    msgs = [("/imu", f"sensor_msgs{sep}Imu", int(round(r[0] * 1e9)), imu(r[0], r[1:4], r[4:7]))
+            for r in seq.imu]
+    msgs += [("/points", f"sensor_msgs{sep}PointCloud2", int(round((s.stamp + 0.1) * 1e9)),
+              pc2(s.stamp, s.points.astype(np.float32), s.times)) for s in seq.scans]
+    return sorted(msgs, key=lambda m: m[2])
+
+
+def _check_bag_run(run, dump):
+    """Every scan of the bag fed, the IMU's scale detected, and a dump the
+    port loads back."""
+    from glim_tpu_torch.io.dump import load_dump
+
+    assert run["scans"] == 3 and run["acc_scale"] == 1.0 and run["decode_seconds"] > 0
+    for name in ("graph.txt", "traj_lidar.txt", "odom_lidar.txt", "config/config.json"):
+        assert os.path.exists(os.path.join(dump, name)), name
+    submaps, poses, _ = load_dump(str(dump), "cpu")
+    assert len(submaps) == len(run["glim"].submaps) and len(poses) == len(submaps)
+
+
+def test_bag_playback_raises(tmp_path):
+    """A ROS1 bag (run.bag) of a three-scan sequence plays through the
+    runner into a dump (it raised before io/rosbag was ported)."""
+    from glim_tpu_torch.io.synthetic import generate_sequence
+    from glim_tpu_torch.tools import glim_runner
+    from test_rosbag import make_rosbag1
+
+    seq = generate_sequence(duration=0.3, n_scan_points=300, scene_points=3000, seed=4)
+    make_rosbag1(str(tmp_path / "run.bag"), _bag_messages(seq, ros1=True), compress="bz2")
+    run = glim_runner.main([str(tmp_path / "run.bag"), "--device", "cpu",
+                            "--dump", str(tmp_path / "d")])
+    _check_bag_run(run, tmp_path / "d")
 
 
 def test_extension_modules_raise(tmp_path):
-    """A module the port lacks raises, naming it; the ported ones load."""
+    """A module the port lacks raises, naming it; the ported ones load
+    (librviz_viewer.so too, since ros/rviz_viewer.py is ported)."""
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.utils.config import create_default_config_dir
 
     cfg = create_default_config_dir(str(tmp_path / "cfg"))
-    with pytest.raises(NotImplementedError, match="librviz_viewer.so"):
-        GlimTorch(cfg, extension_modules=["librviz_viewer.so"], device="cpu")
+    with pytest.raises(NotImplementedError, match="libno_such_viewer.so"):
+        GlimTorch(cfg, extension_modules=["libno_such_viewer.so"], device="cpu")
+    glim = GlimTorch(cfg, extension_modules=["librviz_viewer.so"], device="cpu")
+    assert [type(e).__name__ for e in glim.extensions] == ["RvizViewer"]
+    glim.wait()
+    for e in glim.extensions:
+        e.detach()
     glim = GlimTorch(cfg, extension_modules=["libscan_context_loop_detector.so"], device="cpu")
     assert [type(e).__name__ for e in glim.extensions] == ["ScanContextLoopDetector"]
     glim.wait()

@@ -124,7 +124,8 @@ def test_glim_torch_matches_glim_tpu(tmp_path):
 
 
 def test_import_isolation():
-    """glim_tpu_torch and its pipeline load neither JAX nor glim_tpu."""
+    """glim_tpu_torch and its pipeline, tools and ROS front end load neither
+    JAX nor glim_tpu."""
     code = ("import sys, glim_tpu_torch, glim_tpu_torch.pipeline, glim_tpu_torch.state, "
             "glim_tpu_torch.odometry.keyframe_manager, glim_tpu_torch.mapping.sub_mapping, "
             "glim_tpu_torch.mapping.global_mapping, glim_tpu_torch.tools.backend_stress, "
@@ -147,7 +148,16 @@ def test_import_isolation():
             "glim_tpu_torch.viewer.stream_writer, glim_tpu_torch.viewer.standard_viewer, "
             "glim_tpu_torch.viewer.interactive_tools, glim_tpu_torch.viewer.interactive_viewer, "
             "glim_tpu_torch.tools.watch, glim_tpu_torch.common.cloud_covariance_estimation, "
-            "glim_tpu_torch.common.cloud_deskewing, chip_smoke; "
+            "glim_tpu_torch.common.cloud_deskewing, glim_tpu_torch.utils.interpolation, "
+            "glim_tpu_torch.utils.camera, glim_tpu_torch.native, glim_tpu_torch.native.loader, "
+            "glim_tpu_torch.ops.segmentation, glim_tpu_torch.viewer.map_editor, "
+            "glim_tpu_torch.tools.map_editor, glim_tpu_torch.viewer.offline_viewer, "
+            "glim_tpu_torch.tools.offline_viewer, glim_tpu_torch.tools.interactive_viewer, "
+            "glim_tpu_torch.ros, glim_tpu_torch.ros.cloud_converter, "
+            "glim_tpu_torch.ros.conditioning, glim_tpu_torch.io.rosbag, "
+            "glim_tpu_torch.tools.bag_converter, glim_tpu_torch.ros.messages, "
+            "glim_tpu_torch.ros.extension_module_ros, glim_tpu_torch.ros.node, "
+            "glim_tpu_torch.ros.rviz_viewer, chip_smoke; "
             "from glim_tpu_torch.utils.registry import available_modules; "
             "assert {'odometry_estimation_gpu', 'odometry_estimation_cpu', "
             "'odometry_estimation_ct', 'odometry_estimation_lidar_only'} "
@@ -157,7 +167,7 @@ def test_import_isolation():
             "assert {'global_mapping', 'global_mapping_pose_graph'} "
             "<= set(available_modules('global_mapping')); "
             "assert {'standard_viewer', 'memory_monitor', 'imu_validator', 'scan_context', "
-            "'image_loop', 'gnss_global', 'velocity_suppressor'} "
+            "'image_loop', 'gnss_global', 'velocity_suppressor', 'rviz_viewer'} "
             "== set(available_modules('extension')); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'glim_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
