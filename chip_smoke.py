@@ -4,6 +4,7 @@
     python3 chip_smoke.py --nn-v1 SRC       # ... with phase 3's A/B against SRC
     python3 chip_smoke.py --profile [DIR]   # profiles of three configurations
     python3 chip_smoke.py --eval [OUT]      # the port's full run_eval to OUT
+    python3 chip_smoke.py --debug-backend   # debug_backend over city_loop's 47 s lap
     python3 chip_smoke.py --loop-submaps OUT.npz   # ... saving phase 11b's submap clouds
 
 Phases (any failure exits non-zero):
@@ -18,11 +19,12 @@ Phases (any failure exits non-zero):
      between information, Q = N = 16384 with ~39% of each side masked; the
      pose graph's inlier fraction, Q = N = 10923 with ~24% masked, and its
      ring, Q = N = 2048; the manual loop closure's align, Q = N = 65536,
-     the default submaps' capacity, all valid), a ragged case, the duplicate-target cases (the
+     the default submaps' capacity, all valid; phase 13a's sharded GICP,
+     Q = 2048 a shard against 131072, ~30% masked), a ragged case, the duplicate-target cases (the
      lowest index must win: across the split boundary that the launch
      geometry picks at each caller's shape, and inside one thread's
      register-tiled query rows) and a Q=4096 set with one valid target;
-  3. time kernel and plain version at the callers' eight shapes with CUDA
+  3. time kernel and plain version at the callers' nine shapes with CUDA
      events, in turns (plain, kernel, kernel, plain), each beside its bound
      (valid pairs x 8 flops over the FP32 peak; bytes over the memory rate)
      and its share of it, then the host time to enqueue a call (and, at
@@ -83,8 +85,8 @@ Phases (any failure exits non-zero):
      launches (from the odometry and the global worker threads) must equal
      5 x window steps + 6 x between refinements;
   7. the shipped configurations the port gained, each through GlimTorch on
-     phase 5's sequence (150 scans of 65,536 points, 200 Hz IMU) with the
-     default sub-mapping and global mapping unless named: (a)
+     phase 5's sequence (its first 100 scans of 65,536 points, 200 Hz IMU)
+     with the default sub-mapping and global mapping unless named: (a)
      config_odometry_ct.json unedited (the vgicp model, no hand kernel),
      (b) the same with model_type ivox, (c) config_odometry_cpu.json with
      registration_type VGICP, (d) config_odometry_cpu.json with enable_imu
@@ -154,7 +156,24 @@ Phases (any failure exits non-zero):
      candidates) against the CPU editor's (Jaccard >= 0.99), and
      ``map_editor --select-object --save`` loaded back with exactly the
      deleted points gone;
-  13. print the kernel summary JSON and, last, the device JSON.
+  13. the device mesh and the last two tools: (a) on a mesh of 8 entries
+     of cuda:0 (JAX's tests' 8 virtual devices), sharded_vgicp_linearize
+     and sharded_gicp_linearize at the GICP odometry's shape (16,384
+     source points a call, 2,048 a shard, against 131,072 targets) and
+     sharded_factor_linearize over 8 factors (4,096 points, 65,536-voxel
+     maps) against the unsharded calls (rtol 1e-4, atol 1e-2, equal
+     inliers; tests/test_parallel.py's tolerance), exactly 8 nn_search
+     launches a sharded GICP call, sharded_odometry_step converged (< 0.1
+     m), then tools/multichip_check's backend_parity_check (the 64-submap
+     ring, >= 300 factors, max pose delta < 5e-4) on that mesh and on
+     every visible card's; (b) tools/debug_backend's capture of city_loop
+     (6 s: 60 raycast scans at 32 x 512) and its sweep of no_opt,
+     default and between: finite poses, the global ATE under 0.08 m, and
+     6 nn_search launches a between refinement, one a submap after the
+     first; (c) tools/profile_e2e at its defaults (two passes of 100
+     scans of 20,000 points, async): finite scans/s with and without the
+     drain, the three workers' spans, the drain table;
+  14. print the kernel summary JSON and, last, the device JSON.
 
 ``--profile`` runs phase 5's configuration for 100 scans: host-clock time
 over scans 60-79 (the 48-state window is full and sub-mapping busy from
@@ -174,6 +193,10 @@ archive`` of another commit, with its own chip_smoke.py) and of this one,
 each in a process of its own, parent / change / change / parent, and
 prints a line of scans/s and ATEs for each run.
 
+``--debug-backend`` runs phase 13b over city_loop's whole 47 s lap and
+sweeps all seven back-end configurations; it is not part of the default
+smoke.
+
 ``--eval [OUT]`` runs the port's full run_eval (the five sequences,
 city_loop at 47 s, the registry matrix with its pose-graph rows and the
 window study) on the card and writes it to OUT (default
@@ -182,7 +205,8 @@ build/EVAL_TORCH.md); it is not part of the default smoke.
 ``run_slice``, ``run_default``, ``run_ring``, ``run_pose_graph_ring``,
 ``run_async_default``, ``run_shipped``, ``run_pose_graph_config``,
 ``run_extensions``, ``run_loop_detectors``, ``run_live_corrections``,
-``run_bag``, ``run_ros_node`` and ``run_offline_tools`` are importable and
+``run_bag``, ``run_ros_node``, ``run_offline_tools``, ``run_mesh``,
+``run_debug_backend`` and ``run_profile_e2e`` are importable and
 run on any device (the CPU tests rehearse them at a tiny
 size); ``main`` requires a CUDA device.
 """
@@ -225,12 +249,31 @@ DUMP_FILES = ("graph.txt", "graph.npz", "graph.bin", "values.bin", "odom_lidar.t
               "000000/covs_compact.bin")
 
 
-def _sequence(n_scans, n_scan_points, scene_points, seed):
-    """A synthetic sequence at 10 Hz scans / 200 Hz IMU."""
-    from glim_tpu_torch.io.synthetic import generate_sequence
-    return generate_sequence(duration=n_scans / 10.0, scan_hz=10.0, imu_hz=200.0,
-                             n_scan_points=n_scan_points, scene_points=scene_points,
-                             noise=0.01, seed=seed)
+_SEQUENCES = {}    # generator arguments but the length -> (scans, the sequence)
+
+
+def _sequence(n_scans, n_scan_points, scene_points, seed, **kw):
+    """A synthetic sequence at 10 Hz scans / 200 Hz IMU with no IMU noise
+    (``kw``: generate_sequence's trajectory arguments). The generator draws
+    scan by scan, and the IMU rows are the analytic kinematics, so a shorter
+    sequence is a prefix of a longer one with the same arguments: each is
+    made once a process, at the longest length asked, and a copy of its
+    first ``n_scans`` scans returned (the smoke generated ~1,700 scans of
+    65,536 points before, ~1.5 min of host time)."""
+    import copy
+
+    from glim_tpu_torch.io.synthetic import SyntheticSequence, generate_sequence
+    key = (n_scan_points, scene_points, seed, tuple(sorted(kw.items())))
+    if n_scans > _SEQUENCES.get(key, (0, None))[0]:
+        _SEQUENCES[key] = n_scans, generate_sequence(
+            duration=n_scans / 10.0, scan_hz=10.0, imu_hz=200.0, n_scan_points=n_scan_points,
+            scene_points=scene_points, noise=0.01, seed=seed, **kw)
+    seq = _SEQUENCES[key][1]
+    n = int(n_scans / 10.0 * 10.0)                # generate_sequence's own counts
+    n_imu = int(n_scans / 10.0 * 200.0) + 1
+    return copy.deepcopy(SyntheticSequence(
+        scans=seq.scans[:n], imu=seq.imu[:n_imu], gt_poses=seq.gt_poses[:n],
+        stamps=seq.stamps[:n], T_lidar_imu=seq.T_lidar_imu, landmarks=seq.landmarks))
 
 
 def submap_origin_ate(submaps, seq):
@@ -969,7 +1012,6 @@ def run_pose_graph_config(device, n_scans: int = POSE_GRAPH_SCANS, n_scan_points
     sub-mapping refinements (their ms and host syncs a submap), the loops
     and the nn_search launches the run should make (the odometry's, one a
     between information, and the pose graph's registrations)."""
-    from glim_tpu_torch.io.synthetic import generate_sequence
     from glim_tpu_torch.mapping.callbacks import SubMappingCallbacks
     from glim_tpu_torch.pipeline import GlimTorch
 
@@ -977,9 +1019,7 @@ def run_pose_graph_config(device, n_scans: int = POSE_GRAPH_SCANS, n_scan_points
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = (lambda: _sync_untracked(dev)) if on_card else (lambda: None)
-    seq = generate_sequence(duration=n_scans / 10.0, scan_hz=10.0, imu_hz=200.0,
-                            n_scan_points=n_scan_points, scene_points=scene_points,
-                            noise=0.01, seed=seed, radius=radius, omega=omega)
+    seq = _sequence(n_scans, n_scan_points, scene_points, seed, radius=radius, omega=omega)
     glim = GlimTorch(config_dir(POSE_GRAPH_EDITS, "glim_smoke_pose_graph_"), async_mode=False,
                      device=dev, overrides=overrides)
     sub, gm = glim.sub_mapping, glim.global_backend
@@ -1315,16 +1355,13 @@ def run_loop_detectors(device, n_scans: int = POSE_GRAPH_SCANS, n_scan_points: i
     profiler, on the card) and the submaps' clouds for an offline check."""
     from glim_tpu_torch.ext.image_loop import ImageLoopDetector
     from glim_tpu_torch.ext.scan_context import ScanContextLoopDetector
-    from glim_tpu_torch.io.synthetic import generate_sequence
     from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks, SubMappingCallbacks
     from glim_tpu_torch.pipeline import GlimTorch
     from glim_tpu_torch.types import to_numpy
 
     _release_pipelines()
     dev = torch.device(device)
-    seq = generate_sequence(duration=n_scans / 10.0, scan_hz=10.0, imu_hz=200.0,
-                            n_scan_points=n_scan_points, scene_points=scene_points,
-                            noise=0.01, seed=seed, radius=radius, omega=omega)
+    seq = _sequence(n_scans, n_scan_points, scene_points, seed, radius=radius, omega=omega)
     images = heading_images(seq, seed)
     glim = GlimTorch(config_dir(POSE_GRAPH_EDITS + [("config", "image_loop", "image_buffer",
                                                      IMAGES_KEPT)], "glim_smoke_loops_"),
@@ -2278,6 +2315,325 @@ def _print_offline_tools(res: dict, card: str) -> None:
           f"{res['object_jaccard']:.4f}); edited dump {res['edited_points']} points = {res['map_points']} - {res['deleted']}")
 
 
+# Phase 13 (cells 17-19): the device mesh, debug_backend and profile_e2e.
+MESH_ENTRIES = 8                # 13a: one card as JAX's tests' 8 virtual devices
+MESH_CAP, MESH_TARGETS = 16384, 131072     # the GICP odometry's shape
+MESH_VOXELS = 131072            # the odometry's voxel capacity
+MESH_FACTORS, MESH_FACTOR_POINTS, MESH_FACTOR_VOXELS = 8, 4096, 65536
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-2          # tests/test_parallel.py's tolerance
+MESH_CONVERGE = 0.1             # m; sharded_odometry_step's translation error bound
+PARITY_SUBMAPS, PARITY_ATOL = 64, 5e-4     # glim_tpu/tools/multichip_check.py's
+# 13b: 60 raycast scans. On an H100 80GB HBM3 (700 W), at 20 s (200 scans)
+# phase 13 took 162.2 s of a 933.6 s smoke, at 10 s 160.2 s of a 1217.0 s
+# one on a slower host (PERF.md).
+DEBUG_SEQ, DEBUG_DURATION = "city_loop", 6.0
+DEBUG_WHICH = "no_opt,default,between"
+# --debug-backend: debug_backend.sweep's seven configurations.
+DEBUG_ALL = "no_opt,default,no_imu,fine_voxel,more_iters,weight_1e-2,between"
+WORKER_SPANS = ("odometry", "sub_mapping", "global_mapping")
+
+
+def mesh_inputs(cap: int = MESH_CAP, n_targets: int = MESH_TARGETS,
+                n_factors: int = MESH_FACTORS, factor_points: int = MESH_FACTOR_POINTS,
+                seed: int = 3) -> dict:
+    """Phase 13a's inputs as numpy arrays: a room of ``n_targets`` points
+    (30% masked) on planes and pillars (a floor, four walls, eight pillars:
+    VGICP needs structure to constrain all six directions), a source cloud
+    of ``cap`` points (5% masked) drawn from it, moved by ``T_true^-1``,
+    with 5 mm noise, each point with the plane covariance of its surface
+    (eigenvalues 1, 1 and 1e-3 along the normal, as the pipeline's
+    "plane" regularization gives), and for each of ``n_factors`` factors a
+    source cloud of ``factor_points`` points with its own small pose and a
+    random half of the room as its target."""
+    from glim_tpu_torch.ops import lie_np
+
+    rng = np.random.default_rng(seed)
+    n_floor, n_walls = int(0.4 * n_targets), int(0.4 * n_targets)
+    n_pillars = n_targets - n_floor - n_walls
+    floor = np.stack([rng.uniform(-8, 8, n_floor), rng.uniform(-8, 8, n_floor),
+                      np.zeros(n_floor)], 1)
+    side = rng.integers(0, 4, n_walls)
+    u, z = rng.uniform(-8, 8, n_walls), rng.uniform(0, 3, n_walls)
+    sign = np.where(side % 2 == 0, 8.0, -8.0)
+    walls = np.where((side < 2)[:, None], np.stack([sign, u, z], 1), np.stack([u, sign, z], 1))
+    centers = rng.uniform(-6, 6, (8, 2))
+    which, ang = rng.integers(0, 8, n_pillars), rng.uniform(0, 2 * np.pi, n_pillars)
+    radial = np.stack([np.cos(ang), np.sin(ang), np.zeros(n_pillars)], 1)
+    pillars = np.stack([centers[which, 0], centers[which, 1], rng.uniform(0, 3, n_pillars)],
+                       1) + 0.3 * radial
+    normals = np.concatenate([np.tile([0.0, 0.0, 1.0], (n_floor, 1)),
+                              np.where((side < 2)[:, None], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+                              radial])
+    order = rng.permutation(n_targets)
+    # Off the voxel grid: a plane on a voxel boundary is lost whole by a
+    # one-centimetre step.
+    tgt = (np.concatenate([floor, walls, pillars])[order] + [0.13, -0.21, 0.37]).astype(np.float32)
+    nn = normals[order][:, :, None] * normals[order][:, None, :]
+    tgt_covs = (np.eye(3) - nn + 1e-3 * nn).astype(np.float32)
+    tgt_mask = rng.uniform(size=n_targets) >= 0.3
+    T_true = lie_np.se3_exp(np.array([0.02, -0.01, 0.03, 0.2, -0.1, 0.05]))
+    Ti = np.linalg.inv(T_true)
+    pick = rng.choice(np.flatnonzero(tgt_mask), cap, replace=False)
+    src_world = tgt[pick] + rng.normal(0, 0.005, (cap, 3)).astype(np.float32)
+    src = (src_world @ Ti[:3, :3].T + Ti[:3, 3]).astype(np.float32)
+    src_covs = (Ti[:3, :3] @ tgt_covs[pick] @ Ti[:3, :3].T).astype(np.float32)
+    src_mask = rng.uniform(size=cap) >= 0.05
+    T_src = lie_np.se3_exp(np.array([0.01, 0.02, -0.01, 0.1, 0.05, 0.0]))
+    f_T = np.stack([lie_np.se3_exp(rng.normal(size=6) * 0.02) for _ in range(n_factors)])
+    f_pick = np.stack([rng.choice(n_targets, factor_points, replace=False)
+                       for _ in range(n_factors)])
+    f_mask = rng.uniform(size=(n_factors, factor_points)) >= 0.05
+    f_half = rng.uniform(size=(n_factors, n_targets)) < 0.5
+    return dict(tgt=tgt, tgt_covs=tgt_covs, tgt_mask=tgt_mask, src=src,
+                src_covs=src_covs, src_mask=src_mask, T_true=T_true,
+                T_src=T_src.astype(np.float32), f_T=f_T.astype(np.float32),
+                f_pts=tgt[f_pick], f_covs=tgt_covs[f_pick], f_mask=f_mask, f_half=f_half)
+
+
+def _system_err(a, b) -> float:
+    """Largest |a - b| over H_tt, H_ts, H_ss, b_t, b_s and error, beyond
+    MESH_ATOL + MESH_RTOL |b|: <= 0 when the two systems agree."""
+    worst = -float("inf")
+    for x, y in zip(a[:6], b[:6]):
+        x, y = x.double().cpu(), y.double().cpu()
+        worst = max(worst, float(((x - y).abs() - (MESH_ATOL + MESH_RTOL * y.abs())).max()))
+    return worst
+
+
+def run_mesh(device, mesh=None, voxels: int = MESH_VOXELS,
+             factor_voxels: int = MESH_FACTOR_VOXELS, inputs=None,
+             parity_submaps: int = PARITY_SUBMAPS) -> dict:
+    """Phase 13a on ``device``: the four sharded functions on ``mesh``
+    (default: MESH_ENTRIES entries of ``device``) against the unsharded
+    calls on ``mesh_inputs()``, sharded_gicp_linearize's nn_search
+    launches counted alone, then backend_parity_check on that mesh and on
+    every visible card's (``make_mesh(axis="factors")``; on the CPU, the
+    one-entry CPU mesh)."""
+    from glim_tpu_torch.ops import gicp, lie_np
+    from glim_tpu_torch.ops import voxelmap as vmx
+    from glim_tpu_torch.ops.nn_search import nn_search
+    from glim_tpu_torch.parallel import sharded as sh
+    from glim_tpu_torch.tools.multichip_check import backend_parity_check
+
+    _release_pipelines()
+    dev = torch.device(device)
+    mesh = mesh or sh.make_mesh(devices=[dev] * MESH_ENTRIES)
+    d = inputs or mesh_inputs()
+    t = {k: torch.as_tensor(v, device=dev) for k, v in d.items() if k != "T_true"}
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+
+    def timed(fn):
+        fn()                                    # warm-up
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    eye = torch.eye(4, device=dev)
+    vm = vmx.voxelmap_insert(vmx.empty_gaussian_voxelmap(voxels, 0.5, dev), t["tgt"],
+                             t["tgt_mask"], t["tgt_covs"], 0)
+    src = (t["src"], t["src_covs"], t["src_mask"])
+    tgt = (t["tgt"], t["tgt_covs"], t["tgt_mask"])
+    res = dict(device=str(dev), mesh=[str(x) for x in mesh.devices], cap=int(d["src"].shape[0]),
+               targets=int(d["tgt"].shape[0]), rows={})
+
+    def compare(name, sharded, single):
+        (a, ms_a), (b, ms_b) = timed(sharded), timed(single)
+        row = dict(excess=_system_err(a, b), inliers=int(a.num_inliers),
+                   inliers_single=int(b.num_inliers), ms=ms_a, ms_single=ms_b)
+        res["rows"][name] = row
+        return a
+
+    compare("vgicp", lambda: sh.sharded_vgicp_linearize(mesh, eye, t["T_src"], *src, vm),
+            lambda: gicp.vgicp_linearize(eye, t["T_src"], *src, vm))
+    compare("gicp", lambda: sh.sharded_gicp_linearize(mesh, eye, t["T_src"], *src, *tgt, 1.0),
+            lambda: gicp.gicp_linearize(eye, t["T_src"], *src, *tgt, 1.0))
+    nn_search.kernel_launches = 0
+    sh.sharded_gicp_linearize(mesh, eye, t["T_src"], *src, *tgt, 1.0)
+    res["gicp_launches"] = nn_search.kernel_launches
+
+    F = int(d["f_pts"].shape[0])
+    vms = [vmx.voxelmap_insert(vmx.empty_gaussian_voxelmap(factor_voxels, 0.5, dev),
+                               t["tgt"], t["tgt_mask"] & t["f_half"][f], t["tgt_covs"], 0)
+           for f in range(F)]
+    f_args = (eye.expand(F, 4, 4), t["f_T"], t["f_pts"], t["f_covs"], t["f_mask"])
+    stacked = vmx.stack_voxelmaps(vms)
+    out, ms_f = timed(lambda: sh.sharded_factor_linearize(mesh, *f_args, stacked))
+    ref, ms_loop = timed(lambda: [gicp.vgicp_linearize(eye, t["f_T"][f], t["f_pts"][f],
+                                                       t["f_covs"][f], t["f_mask"][f], vms[f])
+                                  for f in range(F)])
+    res["rows"]["factors"] = dict(
+        excess=max(_system_err([x[f] for x in out], ref[f]) for f in range(F)),
+        inliers=[int(x) for x in out.num_inliers], inliers_single=[int(r.num_inliers) for r in ref],
+        ms=ms_f, ms_single=ms_loop, factors=F)
+
+    T_est, errs = sh.sharded_odometry_step(mesh, eye, *src, vm, iters=10)
+    e = lie_np.se3_log(np.linalg.inv(d["T_true"]) @ T_est.double().cpu().numpy())
+    res["odometry"] = dict(trans_err=float(np.linalg.norm(e[3:])),
+                           rot_err=float(np.linalg.norm(e[:3])),
+                           errs=[float(x) for x in errs.cpu()])
+
+    res["parity"] = backend_parity_check(
+        sh.Mesh(mesh.devices, "factors"), n_submaps=parity_submaps)
+    real = (sh.make_mesh(axis="factors") if dev.type == "cuda"
+            else sh.make_mesh(axis="factors", devices=[dev]))
+    res["parity_real"] = dict(backend_parity_check(real, n_submaps=parity_submaps),
+                              mesh=[str(x) for x in real.devices])
+    return res
+
+
+def check_mesh(res: dict, launches_per_shard: int = 1) -> None:
+    """Phase 13a's failure conditions: every sharded system within
+    tests/test_parallel.py's tolerance of the unsharded one with equal
+    inlier counts, ``launches_per_shard`` nn_search launches a shard (none
+    on the CPU), the sharded solve converged, and both parity checks (>=
+    300 factors, pose delta < 5e-4)."""
+    for name, row in res["rows"].items():
+        if not row["excess"] <= 0.0:
+            raise AssertionError(f"mesh {name}: sharded and unsharded systems differ beyond "
+                                 f"rtol {MESH_RTOL} / atol {MESH_ATOL} (excess {row['excess']})")
+        if row["inliers"] != row["inliers_single"]:
+            raise AssertionError(f"mesh {name}: inliers {row['inliers']} sharded, "
+                                 f"{row['inliers_single']} unsharded")
+    if res["gicp_launches"] != launches_per_shard * len(res["mesh"]):
+        raise AssertionError(f"sharded_gicp_linearize launched nn_search {res['gicp_launches']} "
+                             f"times, want {launches_per_shard} a shard ({len(res['mesh'])} "
+                             "shards)")
+    if not res["odometry"]["trans_err"] < MESH_CONVERGE:
+        raise AssertionError(f"sharded_odometry_step did not converge: {res['odometry']}")
+    for key in ("parity", "parity_real"):
+        p = res[key]
+        if not (p["factors"] >= 300 and p["max_pose_delta"] < PARITY_ATOL):
+            raise AssertionError(f"backend parity ({key}): {p}")
+
+
+def _print_mesh(res: dict, card: str) -> None:
+    print("mesh: " + json.dumps(res))
+    for name, row in res["rows"].items():
+        print(f"mesh [{card}]: {name} over {len(res['mesh'])} entries of {res['mesh'][0]}: "
+              f"{row['ms']:.3f} ms sharded, {row['ms_single']:.3f} ms unsharded, inliers "
+              f"{row['inliers'] if name != 'factors' else sum(row['inliers'])} (equal), "
+              f"excess over the tolerance {row['excess']:.3e}")
+    o = res["odometry"]
+    print(f"mesh [{card}]: sharded_gicp_linearize {res['gicp_launches']} nn_search launches at "
+          f"Q = {res['cap'] // len(res['mesh'])} a shard, N = {res['targets']}; "
+          f"sharded_odometry_step translation error {o['trans_err']:.2e} m, rotation "
+          f"{o['rot_err']:.2e} rad")
+    for key in ("parity", "parity_real"):
+        p = res[key]
+        mesh = p.get("mesh", res["mesh"])
+        print(f"mesh [{card}]: backend parity on {len(mesh)} x {mesh[0]}: {p['submaps']} "
+              f"submaps, {p['factors']} factors, {p['factor_rows']} factor rows, max pose "
+              f"delta {p['max_pose_delta']:.3e}, global_gn {p['gn_ms_sharded']:.2f} ms sharded, "
+              f"{p['gn_ms_single']:.2f} ms unsharded")
+
+
+def run_debug_backend(device, seq: str = DEBUG_SEQ, duration=DEBUG_DURATION,
+                      which: str = DEBUG_WHICH) -> dict:
+    """Phase 13b: ``debug_backend capture`` over ``seq`` (``duration`` None:
+    the sequence's own length) into a temporary directory, then ``sweep``
+    over ``which`` (configuration labels, comma-separated); the between
+    configuration's nn_search launches are counted alone. Returns each configuration's ATE, seconds, submaps and
+    between refinements."""
+    from glim_tpu_torch.ops.nn_search import nn_search
+    from glim_tpu_torch.tools import debug_backend
+
+    _release_pipelines()
+    work = tempfile.mkdtemp(prefix="glim_smoke_debug_")
+    try:
+        path = os.path.join(work, "state.pkl")
+        t0 = time.perf_counter()
+        state = debug_backend.capture(seq, path, duration, device)
+        res = dict(seq=seq, scans=len(state["gt_stamps"]), submaps=len(state["submaps"]),
+                   capture_seconds=time.perf_counter() - t0,
+                   odom_ate=debug_backend._odom_ate(state).ate_rmse,
+                   state_mib=os.path.getsize(path) / 2**20, configs={})
+        labels = which.split(",")
+        for between in (False, True):
+            group = [n for n in labels if (n == "between") == between]
+            if not group:
+                continue
+            nn_search.kernel_launches = 0
+            out = debug_backend.sweep(path, ",".join(group), device)
+            launches = nn_search.kernel_launches
+            for label, (gm, m, seconds) in out.items():
+                res["configs"][label] = dict(
+                    ate=m.ate_rmse, rot_deg=m.rot_rmse_deg, seconds=seconds,
+                    submaps=len(gm.submaps), between_refinements=gm.between_refinements,
+                    finite=bool(all(np.all(np.isfinite(T)) for T in gm.poses)),
+                    launches=launches if between else None)
+            if not between:
+                res["launches_others"] = launches
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def check_debug_backend(res: dict, launches_per_refinement: int = 6) -> None:
+    """Phase 13b's failure conditions: finite poses and a global ATE under
+    DEFAULT_ATE_BOUND in every configuration, every submap in the back-end,
+    no nn_search launch outside the between configuration and, in it, one
+    refinement a submap after the first at ``launches_per_refinement``
+    launches each (6, as expected_launches counts them; none on the
+    CPU)."""
+    for label, c in res["configs"].items():
+        if not (c["finite"] and c["ate"] < DEFAULT_ATE_BOUND and c["submaps"] == res["submaps"]):
+            raise AssertionError(f"debug_backend {label}: {c} ({res['submaps']} submaps)")
+    if res.get("launches_others", 0) != 0:
+        raise AssertionError(f"debug_backend: {res['launches_others']} nn_search launches "
+                             "outside the between configuration")
+    b = res["configs"].get("between")
+    if b is not None and not (b["between_refinements"] == res["submaps"] - 1
+                              and b["launches"] == launches_per_refinement
+                              * b["between_refinements"]):
+        raise AssertionError(f"debug_backend between: {b['launches']} launches, "
+                             f"{b['between_refinements']} refinements, {res['submaps']} submaps")
+
+
+def _print_debug_backend(res: dict, card: str) -> None:
+    print("debug_backend: " + json.dumps(res))
+    print(f"debug_backend [{card}]: capture of {res['seq']} ({res['scans']} raycast scans) in "
+          f"{res['capture_seconds']:.2f} s, {res['submaps']} submaps, odometry ATE "
+          f"{res['odom_ate']:.4f} m, state {res['state_mib']:.2f} MiB")
+    for label, c in res["configs"].items():
+        print(f"debug_backend [{card}]: {label}: global ATE {c['ate']:.4f} m, rot "
+              f"{c['rot_deg']:.3f} deg, {c['seconds']:.3f} s"
+              + (f", {c['launches']} nn_search launches = 6 x {c['between_refinements']} "
+                 "refinements" if c["launches"] is not None else ""))
+
+
+def run_profile_e2e(device, duration: float = 10.0, scan_hz: float = 10.0) -> dict:
+    """Phase 13c: tools/profile_e2e at its defaults (two passes of
+    duration x scan_hz scans of 20,000 points)."""
+    from glim_tpu_torch.tools import profile_e2e
+
+    _release_pipelines()
+    return profile_e2e.run(duration, scan_hz, device)
+
+
+def check_profile_e2e(res: dict) -> None:
+    """Phase 13c's failure conditions: finite scans/s with and without the
+    drain, the three workers' spans in the sustained table, a drain table."""
+    if not (np.isfinite(res["scans_per_s"]) and np.isfinite(res["with_drain_scans_per_s"])
+            and res["scans_per_s"] > 0):
+        raise AssertionError(f"profile_e2e: scans/s {res['scans_per_s']}, with the drain "
+                             f"{res['with_drain_scans_per_s']}")
+    missing = [k for k in WORKER_SPANS if k not in res["scopes"]]
+    if missing or not res["drain_scopes"]:
+        raise AssertionError(f"profile_e2e: spans missing {missing}, drain table "
+                             f"{sorted(res['drain_scopes'])}")
+
+
+def _print_profile_e2e(res: dict, card: str) -> None:
+    print("profile_e2e: " + json.dumps(res))
+    print(f"profile_e2e [{card}]: sustained {res['scans_per_s']:.4f} scans/s "
+          f"({res['sustained_s']:.3f} s for {res['scans']} scans), drain {res['drain_s']:.3f} s, "
+          f"with-drain {res['with_drain_scans_per_s']:.4f} scans/s; "
+          + ", ".join(f"{k} {res['scopes'][k]['mean_ms']:.2f} ms x {res['scopes'][k]['n']}"
+                      for k in WORKER_SPANS if k in res["scopes"]))
+
+
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -2294,6 +2650,7 @@ NN_CHECKS = (("main Q=16384 N=131072", 16384, 131072, 0.3, 0.05),
              ("pose-graph inlier fraction Q=N=10923", 10923, 10923, 0.24, 0.24),
              ("pose-graph ring Q=N=2048", 2048, 2048, 0.05, 0.05),
              ("manual loop close Q=N=65536", 65536, 65536, 0.0, 0.0),
+             ("sharded GICP linearize Q=2048 N=131072", 2048, 131072, 0.3, 0.05),
              ("ragged Q=1000 N=3001", 1000, 3001, 0.3, 0.05))
 
 
@@ -2419,11 +2776,11 @@ def check_nn_search() -> float:
                                        torch.arange(100, device=dev),
                                        torch.arange(100, 200, device=dev)))
     # The duplicated targets below lie within 2.5 m of the origin: a query
-    # on a target has d2 = 0, where the plain version's cancellation error
-    # (a few ulp of 2|t|^2) must stay under REL_TOL.
+    # on a target must find it (d2 = 0), and the expansion that picks it
+    # rounds at a few ulp of 2|t|^2, far under the next target's d2.
     # Both copies of 64 targets on either side of the middle split boundary,
     # at every caller's shape (but the ragged one).
-    for _, Q, N, masked, q_masked in NN_CHECKS[:-1]:
+    def across_split(Q, N, masked, q_masked):
         _, splits, split_len = nn.launch_geometry(Q, N, nn._sm_count(0))
         b = split_len * (splits // 2)
         q, qm, t, tm = _nn_case(gen, Q, N, masked, q_masked=q_masked)
@@ -2432,9 +2789,12 @@ def check_nn_search() -> float:
         tm[b - 64:b + 64] = True
         q[:64] = t[b - 64:b]
         qm[:64] = True
-        max_err = max(max_err, lowest_wins(
+        return lowest_wins(
             f"duplicates across split boundary {b} (Q={Q} N={N}, S={splits})", (q, qm, t, tm),
-            torch.arange(64, device=dev), torch.arange(b - 64, b, device=dev)))
+            torch.arange(64, device=dev), torch.arange(b - 64, b, device=dev))
+
+    for _, Q, N, masked, q_masked in NN_CHECKS[:-1]:
+        max_err = max(max_err, across_split(Q, N, masked, q_masked))
     # One thread's query rows (block 3, thread 5): row r's target a_r has
     # copies at a_r + 1 and a_r + 3 (its chunk) and a_r + 11 (the next);
     # the last row asks for row 0's target.
@@ -2511,7 +2871,7 @@ NN_SHAPES = ((16384, 131072, 0.3, 0.05, ""), (4096, 131072, 0.3, 0.05, "_q4096")
              (4096, 4096, 0.05, 0.05, "_q4096_n4096"), (16384, 65536, 0.3, 0.05, "_n65536"),
              (16384, 16384, 0.39, 0.39, "_q16384_n16384"),
              (10923, 10923, 0.24, 0.24, "_n10923"), (2048, 2048, 0.05, 0.05, "_n2048"),
-             (65536, 65536, 0.0, 0.0, "_q65536_n65536"))
+             (65536, 65536, 0.0, 0.0, "_q65536_n65536"), (2048, 131072, 0.3, 0.05, "_q2048"))
 
 
 def time_nn_search(card: str, v1_src=None) -> dict:
@@ -3031,6 +3391,13 @@ def main() -> int:
         with open(out) as f:
             print(f.read())
         return 0
+    if args[:1] == ["--debug-backend"]:
+        card = _card()
+        print(card)
+        res = run_debug_backend("cuda", duration=None, which=DEBUG_ALL)
+        _print_debug_backend(res, card)
+        check_debug_backend(res)
+        return 0
     if args[:1] == ["--ab-async"]:
         card = _card()
         print(card)
@@ -3046,19 +3413,30 @@ def main() -> int:
         profile_ring(card, *args[1:2])
         profile_async(card, *args[1:2])
         return 0
+    phase_s, clock = {}, [time.perf_counter()]
+
+    def done(name):
+        """Phase ``name`` ended: its seconds since the previous one ended."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
     # --- 1. the card ---
     card = _card()
     kind = torch.cuda.get_device_name(0)
     print(card)
     print(f"device: {kind} x{torch.cuda.device_count()}; python {sys.version.split()[0]}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    done("1")
 
     # --- 2. build + correctness at the main path's shapes ---
     max_err = check_nn_search()
+    done("2")
 
     # --- 3. timing at the main path's shapes ---
     v1_src = args[args.index("--nn-v1") + 1] if "--nn-v1" in args else None
     timing = time_nn_search(card, v1_src)
+    done("3")
 
     # --- 4. the GICP slice (odometry + the CPU back-end) on the card ---
     res = run_slice("cuda")
@@ -3070,6 +3448,7 @@ def main() -> int:
           f"{res['submaps']} submaps, submap-origin ATE {res['submap_ate']} m, "
           f"max memory {res['max_memory_allocated'] / 2**20:.1f} MiB")
     check_slice(res)
+    done("4")
 
     # --- 5. the default configuration on the card ---
     dres = run_default("cuda")
@@ -3077,11 +3456,13 @@ def main() -> int:
     print(f"default [{card}]: nn_search launches {dres['kernel_launches']} "
           "(the VGICP path runs no hand-written kernel)")
     check_default(dres)
+    done("5")
 
     # --- 5b. odometry keyframe eviction at full size ---
     eres = run_default("cuda", n_scans=EVICT_SCANS, overrides=EVICT_OVERRIDES)
     _print_default(eres, card, "evict")
     check_default(eres, "eviction run", min_evictions=1, global_mapping=False)
+    done("5b")
 
     # --- 5c. loop closure on the 128-submap drifting ring ---
     from glim_tpu_torch.ops.nn_search import nn_search
@@ -3090,11 +3471,13 @@ def main() -> int:
     ring_launches = nn_search.kernel_launches
     _print_ring(rres, card)
     check_ring(rres)
+    done("5c")
 
     # --- 5d. the same ring through the pose-graph back-end ---
     pres = run_pose_graph_ring("cuda")
     _print_pose_graph_ring(pres, card)
     check_pose_graph_ring(pres)
+    done("5d")
 
     # --- 6. the async runner at full size, its dump, and the GICP slice async ---
     ares = run_async_default("cuda")
@@ -3107,6 +3490,7 @@ def main() -> int:
           f"= 5 x {gres['window_steps']} window steps + 6 x {gres['between_refinements']} "
           f"between refinements, ATE {gres['ate']:.4f} m")
     check_slice(gres, "async GICP slice", min_window_steps=ASYNC_GICP_SCANS // 3)
+    done("6")
 
     # --- 7. the shipped CT, frame-to-model and pass-through configurations ---
     shipped = {}
@@ -3114,6 +3498,7 @@ def main() -> int:
         shipped[name] = run_shipped("cuda", name)
         _print_shipped(shipped[name], card)
         check_shipped(shipped[name])
+    done("7")
 
     # --- 8. the port's run_eval on figure8_room (EVAL.md's sequence) ---
     fres = run_eval_figure8("cuda")
@@ -3122,11 +3507,13 @@ def main() -> int:
           f"(EVAL.md {EVAL_FIGURE8_ATE} m), global ATE {fres['global_ate']} m, "
           f"{fres['scans_per_s']:.3f} scans/s after the warm-up, {fres['submaps']} submaps")
     check_eval_figure8(fres)
+    done("8")
 
     # --- 9. the pose-graph configuration (refined submaps, GICP betweens, loops) ---
     gres9 = run_pose_graph_config("cuda")
     _print_pose_graph_config(gres9, card)
     check_pose_graph_config(gres9)
+    done("9")
 
     # --- 11. extensions, the headless viewer and live corrections (async) ---
     xres = run_extensions("cuda")
@@ -3143,6 +3530,7 @@ def main() -> int:
     cres = run_live_corrections("cuda")
     _print_live_corrections(cres, card)
     check_live_corrections(cres)
+    done("11")
 
     # --- 12. ROS bag playback, the ROS node and the offline map tools ---
     bres = run_bag("cuda")
@@ -3157,8 +3545,22 @@ def main() -> int:
         check_offline_tools(ores)
     finally:
         shutil.rmtree(bres["work_dir"], ignore_errors=True)
+    done("12")
 
-    # --- 13. summary ---
+    # --- 13. the device mesh, debug_backend and profile_e2e ---
+    mres = run_mesh("cuda")
+    _print_mesh(mres, card)
+    check_mesh(mres)
+    dbres = run_debug_backend("cuda")
+    _print_debug_backend(dbres, card)
+    check_debug_backend(dbres)
+    pres13 = run_profile_e2e("cuda")
+    _print_profile_e2e(pres13, card)
+    check_profile_e2e(pres13)
+    done("13")
+
+    # --- 14. summary ---
+    print(f"phase seconds [{card}]: " + json.dumps(phase_s))
     print(json.dumps({"kernels": [{
         "name": "nn_search", "route": "cuda",
         "source": "glim_tpu_torch/csrc/nn_search.cu",
@@ -3176,6 +3578,8 @@ def main() -> int:
         "launches_manual_loop_close": cres["kernel_launches"],
         "launches_extension_loops": lres["kernel_launches"],
         "launches_offline_loop_close": ores["repl_launches"],
+        "launches_sharded_gicp": mres["gicp_launches"],
+        "launches_debug_backend_between": dbres["configs"]["between"]["launches"],
         "max_abs_err": max_err, **timing}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

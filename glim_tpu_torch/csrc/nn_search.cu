@@ -2,14 +2,18 @@
 //
 // Replaces the Pallas TPU kernel glim_tpu/ops/pallas_knn.py::_nn_kernel
 // (launched by nn_search_pallas). It computes what that kernel computes, not
-// how: for every query q the index of the nearest valid target and its
-// squared distance, with
+// how: for every query q the index of the nearest valid target, chosen by
 //
 //   d2 = (|q|^2 + |t|^2) - 2 q.t          (FP32; FMA allowed, no TF32)
 //
-// ties to the lowest index, d2 clamped >= 0, an invalid target carrying
-// |t|^2 = +inf, an invalid query (or one with no valid target) giving
-// (0, +inf). Any Q and N are accepted.
+// with ties to the lowest index and an invalid target carrying |t|^2 = +inf,
+// and the squared distance of that target by difference, |q - t|^2 (rounded
+// differences, squares and sums, in the plain version's order); an invalid
+// query (or one with no valid target) gives (0, +inf). Any Q and N are
+// accepted. The expansion's rounding grows with |q|^2 + |t|^2 (~1e-4 m^2 at
+// 16 m from the origin) and the reference clamps it at 0; the difference
+// is exact to a few ulp of d2 itself, and the same in kernel and plain
+// version for the same index.
 //
 // What bounds it on an H100: the FP32 instruction rate. The work is Q x N
 // pairs (8 flops a pair in the reference's expansion); the inputs are a few
@@ -45,8 +49,7 @@
 //  3. merge: per query, the S partials in split order with strict '<'
 //     (lowest index on ties across splits; kMergeLanes threads a query,
 //     reduced lexicographically), the winner's target index, and
-//     its d2 recomputed the reference's way, (|q|^2 + |t|^2) - 2 q.t,
-//     clamped.
+//     its d2 by difference, |q - t|^2.
 // d' and d2 order two targets differently only on near-ties that no
 // decisive comparison can see (both round at the magnitude of |t|^2).
 //
@@ -74,7 +77,7 @@ static_assert(32 % kMergeLanes == 0 && kMergeThreads % 32 == 0, "merge lanes");
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
-// |v|^2 as the reference sums it: rounded squares added in order (no FMA).
+// |v|^2 as the plain version sums it: rounded squares added in order (no FMA).
 __device__ __forceinline__ float sq_norm(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
 }
@@ -260,10 +263,8 @@ merge_splits_kernel(const float* __restrict__ queries, const uint8_t* __restrict
   const int pos = part_i[static_cast<int64_t>(split) * Q + qi];
   const float qx = queries[3 * qi + 0], qy = queries[3 * qi + 1], qz = queries[3 * qi + 2];
   const float4 t = xyzw[pos];
-  const float q_sq = sq_norm(qx, qy, qz);
-  const float dot = fmaf(qz, t.z, fmaf(qy, t.y, qx * t.x));
   out_idx[qi] = tidx[pos];
-  out_d2[qi] = fmaxf(fmaf(-2.0f, dot, q_sq + t.w), 0.0f);
+  out_d2[qi] = sq_norm(__fsub_rn(qx, t.x), __fsub_rn(qy, t.y), __fsub_rn(qz, t.z));
 }
 
 // The scratch layout: packed tiles (float4), their target indices, the

@@ -6,7 +6,8 @@ padded tensors and one call runs the whole damped-GN optimization:
 
   * matching-cost factors: ``linearize_core_soa`` vmapped over the factor
     rows, in chunks of 256, with CACHED correspondences (the voxel lookups
-    are refreshed outside, only for factors whose relative pose moved);
+    are refreshed outside, only for factors whose relative pose moved),
+    optionally with the rows sharded over a device mesh;
   * between factors with a full 6x6 information, the prior on the first
     pose, gravity anchors and translation priors;
   * IMU endpoint-chain factors, whose junction velocity/bias states are
@@ -149,11 +150,16 @@ def global_gn(poses0, junc0,
               # translation priors (GNSS / external position constraints)
               t_idx=None, t_pos=None, t_sqrt=None, t_valid=None,
               *, Sp: int, Fp: int, Bp: int, Jp: int, Ap: int, Tp: int = 0,
-              iters: int = 5):
+              iters: int = 5, shard_mesh=None):
     """Damped GN over the submap poses (+ junction states). Returns
     (poses' (Sp, 4, 4), junc' (Jp, 12), err, min_diag (Sp,)): err and the
     per-pose Hessian-diagonal minima come from the last linearization, one
-    update before the returned poses, as in the JAX package."""
+    update before the returned poses, as in the JAX package.
+
+    ``shard_mesh`` (``parallel.sharded.Mesh``) splits the Fp matching rows
+    into ``shard_mesh.size`` contiguous slices, each linearized on its
+    device; the blocks come back concatenated on ``poses0.device`` in row
+    order. Fp must be a multiple of the mesh size."""
     dev = poses0.device
     D = Sp * 6 + Jp * 12
     rows_all = _rows6(torch.arange(Sp, device=dev))
@@ -171,16 +177,29 @@ def global_gn(poses0, junc0,
     sm_covs_s = gicp.sym_pack_soa(sm_covs)
     f_use = f_hit & (f_w > 0)[:, None]
     mw = matching_weight * f_w
+    if shard_mesh is not None:
+        # The factor rows' slices go to their devices once a call, the
+        # submap clouds (any row may read any submap) to each distinct one.
+        from glim_tpu_torch.parallel.sharded import replicas, shard_slices
+        clouds = replicas(shard_mesh, lambda d: (sm_pts_s.to(d), sm_covs_s.to(d)))
+        rows = zip(*(shard_slices(shard_mesh, x, "global_gn")
+                     for x in (f_tgt64, f_src64, f_mu_s, f_ct_s, f_use)))
+        shards = list(zip(shard_mesh.devices, rows))
+
+    def match_rows(T, tgt, src, mu_s, ct_s, use, pts_s, covs_s):
+        T_rel = lie.se3_inv(T[tgt]) @ T[src]
+        outs = []
+        for s in range(0, int(tgt.shape[0]), MATCH_CHUNK):
+            e = s + MATCH_CHUNK
+            outs.append(_match_core(T_rel[s:e, :3, :3], T_rel[s:e, :3, 3], pts_s[src[s:e]],
+                                    covs_s[src[s:e]], mu_s[s:e], ct_s[s:e], use[s:e]))
+        return [torch.cat(parts) for parts in zip(*outs)]
 
     def match_blocks(T):
-        T_rel = lie.se3_inv(T[f_tgt64]) @ T[f_src64]
-        outs = []
-        for s in range(0, Fp, MATCH_CHUNK):
-            e = min(s + MATCH_CHUNK, Fp)
-            src = f_src64[s:e]
-            outs.append(_match_core(T_rel[s:e, :3, :3], T_rel[s:e, :3, 3], sm_pts_s[src],
-                                    sm_covs_s[src], f_mu_s[s:e], f_ct_s[s:e], f_use[s:e]))
-        return [torch.cat(parts) for parts in zip(*outs)]
+        if shard_mesh is None:
+            return match_rows(T, f_tgt64, f_src64, f_mu_s, f_ct_s, f_use, sm_pts_s, sm_covs_s)
+        outs = [match_rows(T.to(d), *rows, *clouds[d]) for d, rows in shards]
+        return [torch.cat([x.to(dev) for x in parts]) for parts in zip(*outs)]
 
     def linearize(T, junc):
         sys = _System()

@@ -27,8 +27,12 @@ voxel resolution stays a device scalar.
 ``loop_search_enabled`` (the viewer's "set_enabled loop_detection") keeps
 only the odometry-neighbour candidate while off, as in the JAX package.
 
+With more than one card attached (and ``use_device_mesh``), ``global_gn``
+shards its matching-factor rows over a mesh of up to 8 of them, a power of
+two (``parallel/sharded.py``), as the JAX package does over its devices.
+
 Not ported: the background precompile worker (it exists only because XLA
-compiles one program per shape) and the device mesh (multi-GPU comes last).
+compiles one program per shape).
 """
 
 from __future__ import annotations
@@ -85,6 +89,9 @@ class GlobalMappingParams:
     # convergence floor of loop closure; well under the voxel resolution).
     relinearize_trans: float = 0.04
     relinearize_rot: float = 0.01
+    # Shard the matching-factor rows of global_gn over a device mesh when
+    # the back-end runs on a card and more than one card is attached.
+    use_device_mesh: bool = True
     # Subsampling stride of the candidate-overlap gate (the overlap only
     # feeds a threshold); 1 = exact.
     overlap_gate_stride: int = 4
@@ -111,6 +118,7 @@ class GlobalMappingParams:
         p.max_implicit_loop_distance = g("max_implicit_loop_distance", 100.0)
         p.min_implicit_loop_overlap = g("min_implicit_loop_overlap", 0.2)
         p.optimization_interval_submaps = int(g("optimization_interval_submaps", 1))
+        p.use_device_mesh = bool(g("use_device_mesh", True))
         p.overlap_gate_stride = int(g("overlap_gate_stride", 4))
         p.max_implicit_loop_candidates = int(g("max_implicit_loop_candidates", 64))
         return p
@@ -170,6 +178,14 @@ class GlobalMapping(GlobalMappingBase):
         self._lk_stack = None
         self._match_stack = None
         self._match_dirty: set = set()
+        self._mesh = None
+        if self.params.use_device_mesh and self.device.type == "cuda":
+            n = torch.cuda.device_count()
+            if n > 1:
+                from glim_tpu_torch.parallel.sharded import make_mesh
+                self._mesh = make_mesh(min(1 << (n.bit_length() - 1), 8), axis="factors")
+                logger.info("global_gn matching factors sharded over %d devices",
+                            self._mesh.size)
 
     # -- insertion --
 
@@ -716,21 +732,24 @@ class GlobalMapping(GlobalMappingBase):
         """Anything new since the last optimize?"""
         return self._new_loop_since_opt or len(self.submaps) > self._last_opt_count
 
-    def optimize(self) -> None:
+    def optimize(self, mesh=None) -> None:
+        """Solve every submap pose; ``mesh`` (default: the back-end's own,
+        if it built one) shards the matching-factor rows."""
         with profile_scope("global/optimize"):
-            self._optimize_impl()
+            self._optimize_impl(mesh if mesh is not None else self._mesh)
 
-    def _solve(self, args: dict, dims: dict, N: int, J: int):
+    def _solve(self, args: dict, dims: dict, N: int, J: int, mesh=None):
         """global_gn on ``_padded_args``' arguments, then one host read of
         its solution: (poses (N, 4, 4), junctions (J, 12), err, min_diag (N,))."""
         T_fin, junc_fin, err, min_diag = global_gn(**args, **dims,
-                                                   iters=self.params.lm_iterations)
+                                                   iters=self.params.lm_iterations,
+                                                   shard_mesh=mesh)
         host = to_numpy(torch.cat([T_fin[:N].reshape(-1), junc_fin[:J].reshape(-1),
                                    err.reshape(1), min_diag[:N]]), np.float64)
         return (host[:16 * N].reshape(N, 4, 4), host[16 * N:16 * N + 12 * J].reshape(J, 12),
                 float(host[16 * N + 12 * J]), host[16 * N + 12 * J + 1:])
 
-    def _optimize_impl(self) -> None:
+    def _optimize_impl(self, mesh=None) -> None:
         N = len(self.submaps)
         if N < 2:
             return
@@ -747,7 +766,7 @@ class GlobalMapping(GlobalMappingBase):
             with record_function("global/opt.args"):
                 args, dims = self._padded_args()
             with record_function("global/opt.gn"):
-                new_poses, juncs, err, md = self._solve(args, dims, N, J)
+                new_poses, juncs, err, md = self._solve(args, dims, N, J, mesh)
             if not np.all(np.isfinite(new_poses)):
                 # Selective indeterminate-system recovery: damp exactly the
                 # rank-deficient poses, found from the Hessian diagonal.
@@ -758,7 +777,7 @@ class GlobalMapping(GlobalMappingBase):
                     self.recovery_damping[int(k)] = 1e6
                 logger.warning("indeterminant linear system: damping poses %s and "
                                "re-optimizing", list(map(int, bad)))
-                new_poses, juncs, err, md = self._solve(*self._padded_args(), N, J)
+                new_poses, juncs, err, md = self._solve(*self._padded_args(), N, J, mesh)
                 self.recovery_damping.clear()
                 if not np.all(np.isfinite(new_poses)):
                     logger.error("recovery failed; keeping previous poses")

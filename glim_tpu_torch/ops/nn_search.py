@@ -2,8 +2,10 @@
 
 Counterpart of ``glim_tpu/ops/pallas_knn.py`` (``nn_search_pallas`` and its
 body ``_nn_kernel``): the nearest valid target for every valid query of
-padded, masked clouds, by ``d2 = |q|^2 + |t|^2 - 2 q.t``, ties to the lowest
-index, d2 clamped >= 0 at the end, invalid queries -> (0, +inf).
+padded, masked clouds, chosen by ``d2 = |q|^2 + |t|^2 - 2 q.t`` with ties to
+the lowest index, its squared distance returned by difference, ``|q - t|^2``
+(the expansion's rounding grows with |q|^2 + |t|^2, where the Pallas kernel
+clamps it at 0), invalid queries -> (0, +inf).
 
 ``nn_search`` dispatches on where its tensors lie: CPU tensors go to
 ``nn_search_plain``; CUDA tensors launch the hand-written kernel in
@@ -37,8 +39,9 @@ def nn_search_plain(queries: torch.Tensor, query_mask: torch.Tensor,
                     targets: torch.Tensor, target_mask: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of the kernel: the same expansion
-    (|q|^2 + |t|^2) - 2 q.t, the first argmin, and the clamp after the
-    search, as the Pallas kernel does. Only valid queries and targets enter
+    (|q|^2 + |t|^2) - 2 q.t and the first argmin, as the Pallas kernel
+    does, then d2 of the target found by difference, the rounded squares
+    summed in order as the kernel sums them. Only valid queries and targets enter
     the distance tiles (tiled over query rows); the targets keep their
     order, so ties still resolve to the lowest index."""
     Q = queries.shape[0]
@@ -56,9 +59,10 @@ def nn_search_plain(queries: torch.Tensor, query_mask: torch.Tensor,
         ids = q_ids[s:s + rows]
         q = queries[ids]
         q_sq = torch.sum(q * q, dim=-1, keepdim=True)
-        best, arg = torch.min(torch.addmm(q_sq + t_sq[None, :], q, t.T, alpha=-2.0),
-                              dim=1)                             # first minimum
-        d2[ids] = torch.clamp(best, min=0.0)
+        _, arg = torch.min(torch.addmm(q_sq + t_sq[None, :], q, t.T, alpha=-2.0),
+                           dim=1)                                # first minimum
+        d = q - t[arg]
+        d2[ids] = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
         idx[ids] = t_ids[arg].to(torch.int32)
     return idx, d2
 

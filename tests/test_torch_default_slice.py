@@ -118,6 +118,34 @@ def test_chip_smoke_default_rehearsal_on_cpu():
     chip_smoke.check_default(res)
 
 
+def test_chip_smoke_sequence_prefix_is_the_generators_output():
+    """chip_smoke._sequence makes a sequence once, at the longest length
+    asked, and cuts shorter ones from it: each cut equals what the
+    generator makes at that length, and a caller's edits stay its own."""
+    import chip_smoke
+    from glim_tpu_torch.io.synthetic import generate_sequence
+
+    kw = dict(radius=8.0, omega=0.5)
+    chip_smoke._sequence(13, 700, 5000, 61, **kw)
+    for n in (13, 7, 3):
+        got = chip_smoke._sequence(n, 700, 5000, 61, **kw)
+        want = generate_sequence(duration=n / 10.0, scan_hz=10.0, imu_hz=200.0,
+                                 n_scan_points=700, scene_points=5000, noise=0.01, seed=61,
+                                 **kw)
+        assert len(got.scans) == len(want.scans) == n
+        for a, b in zip(got.scans, want.scans):
+            assert a.stamp == b.stamp
+            np.testing.assert_array_equal(a.points, b.points)
+            np.testing.assert_array_equal(a.times, b.times)
+        np.testing.assert_array_equal(got.imu, want.imu)
+        np.testing.assert_array_equal(np.stack(got.gt_poses), np.stack(want.gt_poses))
+        assert got.stamps == want.stamps
+        np.testing.assert_array_equal(got.landmarks, want.landmarks)
+        got.scans[0].points[:] = 0.0
+    np.testing.assert_array_equal(chip_smoke._sequence(2, 700, 5000, 61, **kw).scans[0].points,
+                                  want.scans[0].points)
+
+
 def test_chip_smoke_evict_rehearsal_on_cpu():
     """chip_smoke's eviction run (phase 5b: every frame a keyframe) at a
     tiny size on the CPU: past the 15 kept keyframes every insert evicts one,

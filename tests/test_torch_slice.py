@@ -124,8 +124,8 @@ def test_glim_torch_matches_glim_tpu(tmp_path):
 
 
 def test_import_isolation():
-    """glim_tpu_torch and its pipeline, tools and ROS front end load neither
-    JAX nor glim_tpu."""
+    """glim_tpu_torch and its pipeline, tools, ROS front end and device mesh
+    load neither JAX nor glim_tpu."""
     code = ("import sys, glim_tpu_torch, glim_tpu_torch.pipeline, glim_tpu_torch.state, "
             "glim_tpu_torch.odometry.keyframe_manager, glim_tpu_torch.mapping.sub_mapping, "
             "glim_tpu_torch.mapping.global_mapping, glim_tpu_torch.tools.backend_stress, "
@@ -157,7 +157,9 @@ def test_import_isolation():
             "glim_tpu_torch.ros.conditioning, glim_tpu_torch.io.rosbag, "
             "glim_tpu_torch.tools.bag_converter, glim_tpu_torch.ros.messages, "
             "glim_tpu_torch.ros.extension_module_ros, glim_tpu_torch.ros.node, "
-            "glim_tpu_torch.ros.rviz_viewer, chip_smoke; "
+            "glim_tpu_torch.ros.rviz_viewer, glim_tpu_torch.parallel, "
+            "glim_tpu_torch.parallel.sharded, glim_tpu_torch.tools.multichip_check, "
+            "glim_tpu_torch.tools.debug_backend, glim_tpu_torch.tools.profile_e2e, chip_smoke; "
             "from glim_tpu_torch.utils.registry import available_modules; "
             "assert {'odometry_estimation_gpu', 'odometry_estimation_cpu', "
             "'odometry_estimation_ct', 'odometry_estimation_lidar_only'} "
