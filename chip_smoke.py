@@ -131,7 +131,10 @@ Phases (any failure exits non-zero):
      resume once the stream's factor layer shows three submaps in the
      graph: each result, the between
      factors in the graph, align's exact nn_search count (sum over its
-     three LM passes of 1 + trial steps, + 2), the dump loaded back;
+     three LM passes of 1 + trial steps, + 2), the dump loaded back, and
+     every stream line under the JAX schema plus the back-end's
+     global_optimization and loop_detection flags (the watch page's
+     toggles): both on in the first line, loop detection off in the last;
   12. the ROS front end and the offline tools: (a) phase 6's 150 scans
      written as a rosbag2 .db3 (PointCloud2 of float32 x/y/z/t, Imu in
      g-units) and played by ``glim_runner BAG``: every scan fed, acc_scale
@@ -173,7 +176,18 @@ Phases (any failure exits non-zero):
      first; (c) tools/profile_e2e at its defaults (two passes of 100
      scans of 20,000 points, async): finite scans/s with and without the
      drain, the three workers' spans, the drain table;
-  14. print the kernel summary JSON and, last, the device JSON.
+  14. utils/profiling.device_trace over the GICP slice (41 scans, 10
+     window steps, a submap every 4 keyframes), in a Python process of its
+     own, with GLIM_TPU_TORCH_TRACE_DIR and config_logging's log_dir in a
+     temporary directory; the trace opens before scan 28, after the
+     set-up and most of the initialization, with the nn_search count
+     zeroed, and closes after the run: the Chrome trace loads as JSON,
+     holds a window_scan_step span for every window step of the run and
+     one search_split_kernel (and one merge_splits_kernel) event for every
+     nn_search launch counted in it, phase 4's checks hold, and log_dir
+     holds the JAX package's log files less glim_precompile.log; prints
+     the trace's size, its kernel events by name and the phase's seconds;
+  15. print the kernel summary JSON and, last, the device JSON.
 
 ``--profile`` runs phase 5's configuration for 100 scans: host-clock time
 over scans 60-79 (the 48-state window is full and sub-mapping busy from
@@ -193,6 +207,10 @@ archive`` of another commit, with its own chip_smoke.py) and of this one,
 each in a process of its own, parent / change / change / parent, and
 prints a line of scans/s and ATEs for each run.
 
+``--trace-cost`` builds nn_search's library, then runs phase 14's child
+untraced, traced, traced and untraced, each in a process of its own, and prints for each the seconds
+from scan 28 to the run's end: what device_trace costs the traced scans.
+
 ``--debug-backend`` runs phase 13b over city_loop's whole 47 s lap and
 sweeps all seven back-end configurations; it is not part of the default
 smoke.
@@ -206,13 +224,14 @@ build/EVAL_TORCH.md); it is not part of the default smoke.
 ``run_async_default``, ``run_shipped``, ``run_pose_graph_config``,
 ``run_extensions``, ``run_loop_detectors``, ``run_live_corrections``,
 ``run_bag``, ``run_ros_node``, ``run_offline_tools``, ``run_mesh``,
-``run_debug_backend`` and ``run_profile_e2e`` are importable and
+``run_debug_backend``, ``run_profile_e2e`` and ``run_device_trace`` are importable and
 run on any device (the CPU tests rehearse them at a tiny
 size); ``main`` requires a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -370,12 +389,14 @@ def _timed_run(glim, seq, dev, on_scan=None) -> dict:
 def run_slice(device, n_scans: int = 150, n_scan_points: int = 65536,
               scene_points: int = 400000, seed: int = 0,
               odometry_overrides=None, preprocess_overrides=None,
-              sub_mapping_overrides=None, on_scan=None, async_mode=False) -> dict:
+              sub_mapping_overrides=None, on_scan=None, async_mode=False,
+              overrides=None) -> dict:
     """Run GlimTorch (sync, or async with ``async_mode``;
     config_odometry_cpu.json with the reference's CPU back-end,
     config_global_mapping_cpu.json) over a synthetic sequence at 10 Hz
     scans / 200 Hz IMU; returns the run's metrics. ``on_scan(i)`` runs
-    before scan i."""
+    before scan i; ``overrides`` are further (config, module, name, value)
+    edits."""
     from glim_tpu_torch.pipeline import GlimTorch
 
     _release_pipelines()
@@ -387,7 +408,7 @@ def run_slice(device, n_scans: int = 150, n_scan_points: int = 65536,
             ("config_odometry", "odometry_estimation", odometry_overrides),
             ("config_preprocess", "preprocess", preprocess_overrides),
             ("config_sub_mapping", "sub_mapping", sub_mapping_overrides))
-           for k, v in (values or {}).items()])
+           for k, v in (values or {}).items()] + list(overrides or []))
     seq = _sequence(n_scans, n_scan_points, scene_points, seed)
     glim = GlimTorch(cfg_dir, async_mode=async_mode, device=dev)
     return _timed_run(glim, seq, dev, on_scan)
@@ -448,17 +469,17 @@ def run_default(device, n_scans: int = 150, n_scan_points: int = 65536,
                 scene_points: int = 400000, seed: int = 0, overrides=None,
                 on_scan=None, async_mode=False) -> dict:
     """Run GlimTorch (sync, or async with ``async_mode``) on the default
-    config directory, unedited but for ``overrides`` ((config, module,
+    config directory, unedited but for its log_dir (``config_dir``) and
+    ``overrides`` ((config, module,
     name, value) tuples: the CPU rehearsal's sizes, phase 5b's keyframe
     edit), over a synthetic sequence at 10 Hz scans / 200 Hz IMU; returns
     the run's metrics. ``on_scan(i)`` runs before scan i."""
     from glim_tpu_torch.mapping.callbacks import SubMappingCallbacks
     from glim_tpu_torch.pipeline import GlimTorch
-    from glim_tpu_torch.utils.config import create_default_config_dir
 
     _release_pipelines()
     dev = torch.device(device)
-    cfg_dir = create_default_config_dir(tempfile.mkdtemp(prefix="glim_smoke_default_"))
+    cfg_dir = config_dir(prefix="glim_smoke_default_")
     seq = _sequence(n_scans, n_scan_points, scene_points, seed)
     glim = GlimTorch(cfg_dir, async_mode=async_mode, device=dev, overrides=overrides)
     to_sub = []
@@ -541,13 +562,15 @@ def check_ring(res: dict, pre_ate: float = RING_PRE_ATE) -> None:
 
 
 def config_dir(overrides=None, prefix: str = "glim_smoke_") -> str:
-    """A default config directory with ``overrides`` ((config, module,
-    name, value) tuples, applied in order; "config" is config.json) written
-    into its files."""
+    """A default config directory with config_logging's log_dir in the
+    directory itself, and ``overrides`` ((config, module, name, value)
+    tuples, applied in order; "config" is config.json) written into its
+    files."""
     from glim_tpu_torch.utils.config import create_default_config_dir
 
     cfg_dir = create_default_config_dir(tempfile.mkdtemp(prefix=prefix))
-    for logical, module, name, value in overrides or []:
+    logs = [("config_logging", "logging", "log_dir", os.path.join(cfg_dir, "logs"))]
+    for logical, module, name, value in logs + list(overrides or []):
         # config.json maps the logical names to files (an override may remap).
         with open(os.path.join(cfg_dir, "config.json")) as f:
             files = json.load(f)["global"]
@@ -1126,12 +1149,18 @@ EXT_SCANS = 100                       # 11a: phase 5's sequence cut from 150 sca
 LIVE_SCANS = 120
 LIVE_TRIGGER_SUBMAPS = 3
 STREAM_STATS = ("frames", "keyframes", "submaps", "mb")
+# The runner's stream adds the back-end's live toggles to each line's stats
+# (the watch page shows them).
+STREAM_FLAGS = ("global_optimization", "loop_detection")
 
 
-def stream_schema_errors(path: str) -> list:
+def stream_schema_errors(path: str, flags: bool = False) -> list:
     """Each line of a viewer stream against the JAX package's line schema
-    (glim_tpu/viewer/stream_writer.py): the errors found, [] if none."""
+    (glim_tpu/viewer/stream_writer.py), with STREAM_FLAGS as booleans in
+    the stats too if ``flags`` (the runner's stream): the errors found, []
+    if none."""
     errors = []
+    want_stats = set(STREAM_STATS) | (set(STREAM_FLAGS) if flags else set())
 
     def pose_rows(v):
         return isinstance(v, list) and all(
@@ -1158,7 +1187,8 @@ def stream_schema_errors(path: str) -> list:
             errors.append(f"line {n}: keys {sorted(keys)}")
         elif not (isinstance(d["t"], (int, float)) and d["seq"] == n and pose_rows(d["odom"])
                   and pose_rows(d["submaps"]) and isinstance(d["stats"], dict)
-                  and set(d["stats"]) == set(STREAM_STATS)
+                  and set(d["stats"]) == want_stats
+                  and all(isinstance(d["stats"][k], bool) for k in want_stats - set(STREAM_STATS))
                   and point_rows(d.get("scan", []))
                   and all(isinstance(k, str) and point_rows(v)
                           for k, v in d.get("clouds", {}).items())
@@ -1530,6 +1560,14 @@ def _live_commands(stream: str, commands: str, done, written, timeout: float = 6
     return cmds
 
 
+def _stream_flags(path: str) -> list:
+    """The (global_optimization, loop_detection) of each stream line's
+    stats, (None, None) where a line lacks them."""
+    with open(path) as f:
+        return [tuple(json.loads(line).get("stats", {}).get(k) for k in STREAM_FLAGS)
+                for line in f if line.strip()]
+
+
 def run_live_corrections(device, n_scans: int = LIVE_SCANS, n_scan_points: int = 65536,
                          scene_points: int = 400000, seed: int = 0, overrides=None,
                          work_dir=None) -> dict:
@@ -1609,7 +1647,8 @@ def run_live_corrections(device, n_scans: int = LIVE_SCANS, n_scan_points: int =
             submap_valid=[int(s.frame.mask.sum()) for s in gm.submaps[:4]],
             loop_search_enabled=gm.loop_search_enabled, submaps=len(gm.submaps),
             loaded_submaps=len(fresh.submaps), loaded_between=len(fresh.between_factors),
-            stream_errors=stream_schema_errors(stream),
+            stream_errors=stream_schema_errors(stream, flags=True),
+            stream_flags=_stream_flags(stream),
             max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else None),
             on_card=dev.type == "cuda")
@@ -1657,6 +1696,14 @@ def check_live_corrections(res: dict) -> None:
         raise AssertionError(f"{name}: dump loaded {res['loaded_submaps']} submaps / "
                              f"{res['loaded_between']} between factors; stream "
                              f"{res['stream_errors'][:3]}")
+    # The stream shows the toggles as the back-end holds them: loop detection
+    # on from the first line, off in the last (after set_enabled), and
+    # optimization on throughout.
+    flags = res["stream_flags"]
+    if not flags or flags[0] != (True, True) or flags[-1] != (True, False) \
+            or any(f[0] is not True for f in flags):
+        raise AssertionError(f"{name}: the stream's (global_optimization, loop_detection) "
+                             f"{flags[:2]} ... {flags[-2:]}")
 
 
 def _print_live_corrections(res: dict, card: str) -> None:
@@ -2634,6 +2681,186 @@ def _print_profile_e2e(res: dict, card: str) -> None:
                       for k in WORKER_SPANS if k in res["scopes"]))
 
 
+# Phase 14: utils/profiling.device_trace over a short GICP slice, in a
+# process of its own. The first window step comes after the 3 s
+# initialization window, at scan 31 (phase 4: 119 steps in 150 scans), so
+# 41 scans give the 10 the phase asks for. The trace holds every host op
+# and kernel of what it covers, and its size is most of the phase's time:
+# it opens before scan TRACE_FROM, after the pipeline's set-up and most of
+# the initialization scans, and closes after the end-of-sequence flush.
+TRACE_SCANS = 41
+TRACE_FROM = 28
+TRACE_MIN_WINDOW_STEPS = 10
+# The end-of-sequence flush hands sub-mapping the window's frames; a submap
+# every 4 keyframes (as tests/test_torch_slice.py's card case) gives the
+# back-end submaps to refine between factors for, and phase 4's checks.
+TRACE_SUB_MAPPING = dict(max_num_keyframes=4)
+# csrc/nn_search.cu launches pack_targets_kernel (when N > 0),
+# search_split_kernel and merge_splits_kernel once for every call that
+# ops/nn_search.py counts.
+SEARCH_KERNELS_PER_CALL = 1
+# The log files GlimTorch writes for the default config_logging: the JAX
+# package's, less glim_precompile.log (its module is not ported).
+LOG_FILES = ("glim_global.log", "glim_sub.log", "glim_validator.log")
+
+
+def _kernel_name(name: str) -> str:
+    """The bare function name of a trace's kernel event, whose name is a
+    demangled signature ("void ns::f<...>(...)", "(anonymous
+    namespace)::f(...)") or a plain name."""
+    n = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].strip()
+    return n.split(" ")[-1].split("::")[-1]
+
+
+def trace_slice(device, out_json: str, n_scans: int = TRACE_SCANS,
+                trace_from: int = TRACE_FROM, traced: bool = True, **slice_kwargs) -> None:
+    """Phase 14's child process: ``run_slice`` with
+    ``device_trace("gicp_slice", device)`` opened before scan
+    ``trace_from`` and closed after the run, GLIM_TPU_TORCH_TRACE_DIR
+    (unset unless ``traced``) and config_logging's log_dir in a temporary
+    directory. The nn_search count is zeroed where the trace opens. Writes
+    to ``out_json`` the run's metrics, the seconds from the trace's opening
+    to the run's end (``covered_s``; ``scan_s`` splits it at each scan's
+    start, the last with the flush), of opening the profiler, of its stop
+    and export and of reading the trace back, the trace's size, its kernel
+    events by name, its window_scan_step spans and the log files found."""
+    from glim_tpu_torch.ops.nn_search import nn_search
+    from glim_tpu_torch.utils.profiling import device_trace
+
+    tmp = tempfile.mkdtemp(prefix="glim_smoke_trace_")
+    clock, marks = {}, []
+    try:
+        if traced:
+            os.environ["GLIM_TPU_TORCH_TRACE_DIR"] = os.path.join(tmp, "trace")
+        else:
+            os.environ.pop("GLIM_TPU_TORCH_TRACE_DIR", None)
+        log_dir = os.path.join(tmp, "logs")
+        overrides = [("config_logging", "logging", "log_dir", log_dir),
+                     ("config_logging", "logging", "save_logs", True)]
+        with contextlib.ExitStack() as trace:
+
+            def open_trace(i):
+                if i == trace_from:
+                    t = time.perf_counter()
+                    trace.enter_context(device_trace("gicp_slice", device))
+                    nn_search.kernel_launches = 0
+                    now = time.perf_counter()
+                    clock.update(open=now, start_s=now - t)
+                if i >= trace_from:
+                    marks.append(time.perf_counter())
+
+            res = run_slice(device, n_scans=n_scans, overrides=overrides, on_scan=open_trace,
+                            **slice_kwargs)
+            t1 = time.perf_counter()
+        t2 = time.perf_counter()
+        if "open" not in clock:
+            raise AssertionError(f"device trace: {n_scans} scans never reach scan {trace_from}")
+        res.update(traced=traced, covered_s=t1 - clock["open"], start_s=clock["start_s"],
+                   scan_s=np.diff(marks + [t1]).tolist(),
+                   write_s=t2 - t1,
+                   log_files={f: os.path.getsize(os.path.join(log_dir, f))
+                              for f in sorted(os.listdir(log_dir))}
+                   if os.path.isdir(log_dir) else {})
+        if traced:
+            path = os.path.join(tmp, "trace", "gicp_slice", "trace.json")
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            kernel_names = [e["name"] for e in events if e.get("cat") == "kernel"]
+            res.update(
+                read_s=time.perf_counter() - t2, trace_bytes=os.path.getsize(path),
+                trace_events=len(events), kernel_events=len(kernel_names),
+                kernels_by_name=dict(Counter(map(_kernel_name, kernel_names)).most_common()),
+                search_events=sum("search_split_kernel" in n for n in kernel_names),
+                merge_events=sum("merge_splits_kernel" in n for n in kernel_names),
+                spans=dict(Counter(e["name"] for e in events
+                                   if e.get("cat") == "user_annotation")))
+        with open(out_json, "w") as f:
+            json.dump(res, f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_device_trace(device, n_scans: int = TRACE_SCANS, trace_from: int = TRACE_FROM,
+                     traced: bool = True, timeout: float = 600.0, **slice_kwargs) -> dict:
+    """Phase 14: ``trace_slice`` in a fresh Python process (a logger takes
+    its file sink once a process, when it is first made, and the earlier
+    phases made them) -> its results and the child's seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    fd, out = tempfile.mkstemp(prefix="glim_smoke_trace_", suffix=".json")
+    os.close(fd)
+    code = ("import sys, json, chip_smoke; chip_smoke.trace_slice(sys.argv[1], sys.argv[2], "
+            "**json.loads(sys.argv[3]))")
+    kwargs = dict(slice_kwargs, n_scans=n_scans, trace_from=trace_from, traced=traced)
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-c", code, str(device), out, json.dumps(kwargs)],
+                           cwd=here, capture_output=True, text=True, timeout=timeout)
+        if r.returncode != 0:
+            raise AssertionError(f"device trace: the child exited {r.returncode}: "
+                                 f"{r.stderr[-3000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    finally:
+        os.remove(out)
+    res["child_s"] = time.perf_counter() - t0
+    return res
+
+
+def check_device_trace(res: dict, min_window_steps: int = TRACE_MIN_WINDOW_STEPS) -> None:
+    """Phase 14's failure conditions: phase 4's slice checks over the
+    launches counted from the trace's opening, the log files of LOG_FILES,
+    and no other, in log_dir; and, when traced, a window_scan_step span for
+    every window step of the run, on the card SEARCH_KERNELS_PER_CALL
+    search_split_kernel events (and a merge) for every nn_search launch
+    counted, and on the CPU no kernel event."""
+    name = "device trace"
+    check_slice(res, name, min_window_steps=min_window_steps)
+    if sorted(res["log_files"]) != sorted(LOG_FILES):
+        raise AssertionError(f"{name}: log files {res['log_files']}, want {LOG_FILES}")
+    if not res["traced"]:
+        return
+    if res["spans"].get("window_scan_step") != res["window_steps"]:
+        raise AssertionError(f"{name}: {res['spans'].get('window_scan_step')} window_scan_step "
+                             f"spans for {res['window_steps']} window steps")
+    on_card = res["max_memory_allocated"] is not None
+    want = SEARCH_KERNELS_PER_CALL * res["kernel_launches"] if on_card else 0
+    if not res["search_events"] == res["merge_events"] == want:
+        raise AssertionError(f"{name}: {res['search_events']} search_split_kernel / "
+                             f"{res['merge_events']} merge_splits_kernel events, want {want} "
+                             f"({res['kernel_launches']} nn_search launches in the trace)")
+
+
+def _print_device_trace(res: dict, card: str, seconds: float) -> None:
+    print("device trace: " + json.dumps(res))
+    top = ", ".join(f"{n} {c}" for n, c in list(res["kernels_by_name"].items())[:8])
+    print(f"device trace [{card}]: {res['scans']} scans, traced from scan {TRACE_FROM}: "
+          f"{res['window_steps']} window steps ({res['spans'].get('window_scan_step')} spans), "
+          f"{res['kernel_launches']} nn_search launches and {res['search_events']} "
+          f"search_split_kernel events; trace {res['trace_bytes'] / 2**20:.1f} MiB, "
+          f"{res['trace_events']} events, {res['kernel_events']} kernel events (by name: "
+          f"{top}); profiler started in {res['start_s']:.2f} s, traced {res['covered_s']:.2f} s "
+          f"(the feed from scan 0 {res['seconds']:.2f} s), trace written in "
+          f"{res['write_s']:.2f} s and read in {res['read_s']:.2f} s, child "
+          f"{res['child_s']:.2f} s, phase {seconds:.2f} s; log files {res['log_files']}")
+
+
+def trace_cost(card: str) -> None:
+    """``--trace-cost``: nn_search's library built first, then phase 14's
+    child untraced, traced, traced, untraced, each in a fresh process and
+    checked; prints for each the seconds from scan TRACE_FROM to the run's
+    end (``covered_s``), the profiler's start and stop + write, and the
+    child's seconds."""
+    from glim_tpu_torch.ops.nn_search import _library
+
+    _library()
+    for traced in (False, True, True, False):
+        res = run_device_trace("cuda", traced=traced, sub_mapping_overrides=TRACE_SUB_MAPPING)
+        check_device_trace(res)
+        keys = ("traced", "covered_s", "scan_s", "start_s", "write_s", "read_s", "child_s",
+                "seconds", "window_steps", "kernel_launches", "trace_bytes", "trace_events")
+        print(f"trace-cost [{card}]: " + json.dumps({k: res.get(k) for k in keys}), flush=True)
+
+
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -3398,6 +3625,11 @@ def main() -> int:
         _print_debug_backend(res, card)
         check_debug_backend(res)
         return 0
+    if args[:1] == ["--trace-cost"]:
+        card = _card()
+        print(card)
+        trace_cost(card)
+        return 0
     if args[:1] == ["--ab-async"]:
         card = _card()
         print(card)
@@ -3559,7 +3791,14 @@ def main() -> int:
     check_profile_e2e(pres13)
     done("13")
 
-    # --- 14. summary ---
+    # --- 14. a device trace of the GICP slice, and its log files ---
+    t14 = time.perf_counter()
+    tres = run_device_trace("cuda", sub_mapping_overrides=TRACE_SUB_MAPPING)
+    _print_device_trace(tres, card, time.perf_counter() - t14)
+    check_device_trace(tres)
+    done("14")
+
+    # --- 15. summary ---
     print(f"phase seconds [{card}]: " + json.dumps(phase_s))
     print(json.dumps({"kernels": [{
         "name": "nn_search", "route": "cuda",
@@ -3580,6 +3819,7 @@ def main() -> int:
         "launches_offline_loop_close": ores["repl_launches"],
         "launches_sharded_gicp": mres["gicp_launches"],
         "launches_debug_backend_between": dbres["configs"]["between"]["launches"],
+        "launches_device_trace": tres["kernel_launches"],
         "max_abs_err": max_err, **timing}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

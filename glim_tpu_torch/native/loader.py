@@ -1,6 +1,7 @@
 """PLY point-cloud IO of the host runtime.
 
-Twin of ``glim_tpu/native/loader.py``'s ``ply_read`` / ``ply_write``, whose
+Twin of ``glim_tpu/native/loader.py``'s ``ply_read`` / ``ply_write`` (and,
+by name, its ``pack_scan_i16`` and ``available``), whose
 reader is C++ (``glim_tpu/native/pack.cpp:65-97``): a binary little-endian
 PLY whose vertex element leads with float x, y, z; any further per-vertex
 scalar properties (intensity, a uchar ring, a double timestamp, ...) are
@@ -15,6 +16,8 @@ assumes a 12-byte stride and misreads a PLY with extra properties.)
 from __future__ import annotations
 
 import numpy as np
+
+from glim_tpu_torch.native.pack import pack_scan_i16  # noqa: F401  (the JAX module's name)
 
 # PLY scalar types and their sizes (both naming schemes of the format).
 _PLY_TYPES = {"char": "i1", "uchar": "u1", "short": "<i2", "ushort": "<u2",
@@ -77,3 +80,10 @@ def ply_write(path: str, points: np.ndarray) -> None:
                  "property float x\nproperty float y\nproperty float z\n"
                  "end_header\n").encode())
         f.write(pts.tobytes())
+
+
+def available() -> bool:
+    """Whether the host packer can be used. The JAX package's twin reports
+    whether its C++ library built and loaded; the port's packer is numpy
+    (``native/pack.py``, imported by this module), so it always can."""
+    return True

@@ -62,6 +62,12 @@ def estimate_covariances(points: torch.Tensor, mask: torch.Tensor,
     return cov_r, normals
 
 
+def estimate_normals(points: torch.Tensor, mask: torch.Tensor,
+                     neighbors: torch.Tensor) -> torch.Tensor:
+    """Per-point normals only: those of ``estimate_covariances(..., NONE)``."""
+    return estimate_covariances(points, mask, neighbors, NONE)[1]
+
+
 def outlier_mask(sq_dists: torch.Tensor, mask: torch.Tensor,
                  std_mul_factor=1.0) -> torch.Tensor:
     """Statistical outlier removal on kNN distances: keep a point if its mean

@@ -1,9 +1,8 @@
-"""Small analytic factors: SE3 prior, translation prior, rotated-vector
-constraint and linear damping, batched.
+"""Small analytic factors: SE3 between factors with a Huber weight, SE3
+prior, translation prior, rotated-vector constraint and linear damping,
+batched.
 
-Twin of the parts of ``glim_tpu/ops/factors.py`` that the matching-cost
-global back-end uses (the pose-graph back-end's ``between_linearize`` and
-``scatter_between`` come with it). Residuals follow the right-retraction
+Twin of ``glim_tpu/ops/factors.py``. Residuals follow the right-retraction
 convention x (+) xi = x * Exp(xi). Jacobians are exact, by forward-mode
 ``torch.func.jacfwd`` on the retraction parameters, vmapped over the factor
 batch and evaluated in float64 (see ``batched_jacobian``); J and r are cast
@@ -13,7 +12,7 @@ package.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 from torch.func import jacfwd, vmap
@@ -58,6 +57,60 @@ def _whitened(J: torch.Tensor, r: torch.Tensor, sqrt_info: torch.Tensor):
     Jt = J.transpose(-1, -2)
     return (Jt @ (W[..., None] * J), (Jt @ (W * r)[..., None])[..., 0],
             torch.sum(W * r * r, -1))
+
+
+class BetweenBatch(NamedTuple):
+    """Batched linearized between factors: for factor k with endpoints
+    (i_k, j_k), r_k = log(Z_k^-1 T_i^-1 T_j), whitened by sqrt_info and
+    Huber-weighted. H blocks (B, 6, 6), b blocks (B, 6)."""
+
+    H_ii: torch.Tensor
+    H_ij: torch.Tensor
+    H_jj: torch.Tensor
+    b_i: torch.Tensor
+    b_j: torch.Tensor
+    error: torch.Tensor   # (B,)
+    weight: torch.Tensor  # (B,) robust weights applied
+
+
+def between_linearize(T_i: torch.Tensor, T_j: torch.Tensor, Z: torch.Tensor,
+                      sqrt_info: torch.Tensor, huber_k: torch.Tensor) -> BetweenBatch:
+    """Batched SE3 between factors. T_i, T_j (B, 4, 4) the endpoints' world
+    poses, Z (B, 4, 4) the measured relative pose i -> j, sqrt_info (B, 6)
+    the diagonal whitening, huber_k (B,) the Huber threshold on the
+    whitened norm (<= 0 disables it). Both endpoints' Jacobians come from
+    one 12-dof ``batched_jacobian``."""
+    def res(x, Ti, Tj, Zi):
+        return se3_log(Zi @ se3_inv(Ti @ se3_exp(x[:6])) @ (Tj @ se3_exp(x[6:])))
+
+    J, r = batched_jacobian(res, 12, T_i, T_j, se3_inv(Z))
+    J_i, J_j = J[..., :6], J[..., 6:]
+    norm = torch.linalg.norm(sqrt_info * r, dim=-1)
+    w = torch.where(huber_k > 0, torch.clamp(huber_k / torch.clamp(norm, min=1e-12), max=1.0),
+                    torch.ones_like(norm))
+    W = sqrt_info * sqrt_info * w[:, None]           # diag info x robust weight
+    Jt_i, Jt_j = J_i.transpose(-1, -2), J_j.transpose(-1, -2)
+    Wr = (W * r)[..., None]
+    return BetweenBatch(H_ii=Jt_i @ (W[..., None] * J_i), H_ij=Jt_i @ (W[..., None] * J_j),
+                        H_jj=Jt_j @ (W[..., None] * J_j), b_i=(Jt_i @ Wr)[..., 0],
+                        b_j=(Jt_j @ Wr)[..., 0], error=torch.sum(W * r * r, -1), weight=w)
+
+
+def scatter_between(H: torch.Tensor, b: torch.Tensor, batch: BetweenBatch,
+                    idx_i: torch.Tensor, idx_j: torch.Tensor):
+    """Add the batched between blocks into the dense (6N, 6N) system and its
+    (6N,) vector -> (H, b), new tensors; blocks at a repeated endpoint or
+    pair add up (``index_put`` with accumulate)."""
+    ar = torch.arange(6, device=H.device)
+    ri = (idx_i.to(torch.int64)[:, None] * 6 + ar)   # (B, 6) rows of i
+    rj = (idx_j.to(torch.int64)[:, None] * 6 + ar)
+    rows = torch.cat([ri, ri, rj, rj])[:, :, None].expand(-1, 6, 6)
+    cols = torch.cat([ri, rj, ri, rj])[:, None, :].expand(-1, 6, 6)
+    blocks = torch.cat([batch.H_ii, batch.H_ij, batch.H_ij.transpose(-1, -2), batch.H_jj])
+    H = H.index_put((rows.reshape(-1), cols.reshape(-1)), blocks.reshape(-1), accumulate=True)
+    b = b.index_put((torch.cat([ri, rj]).reshape(-1),),
+                    torch.cat([batch.b_i, batch.b_j]).reshape(-1), accumulate=True)
+    return H, b
 
 
 def prior_linearize(T: torch.Tensor, Z: torch.Tensor, sqrt_info: torch.Tensor):

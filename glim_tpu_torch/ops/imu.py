@@ -66,6 +66,48 @@ def _zeros_before(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(x[:1]), x[:-1]])
 
 
+def preintegrate_sequential(acc: torch.Tensor, gyro: torch.Tensor, dts: torch.Tensor,
+                            mask: torch.Tensor, bias: torch.Tensor, acc_noise, gyro_noise,
+                            int_noise) -> PreintegratedImu:
+    """Step-by-step preintegration, one sample at a time: the ground truth
+    for the log-depth ``preintegrate``. A plain loop of small ops per
+    sample (no host read: a masked sample leaves the state as it was by
+    ``torch.where``), so it is slow on the card and kept as a reference."""
+    ba, bg = bias[:3], bias[3:]
+    sig_a2 = acc_noise * acc_noise
+    sig_g2 = gyro_noise * gyro_noise
+    sig_i2 = int_noise * int_noise
+    eye = torch.eye(3, dtype=acc.dtype, device=acc.device)
+    Z = torch.zeros_like(eye)
+    state = (eye, torch.zeros_like(acc[0]), torch.zeros_like(acc[0]), torch.zeros_like(dts[0]),
+             Z, Z, Z, Z, Z, torch.zeros((9, 9), dtype=acc.dtype, device=acc.device))
+    for k in range(acc.shape[0]):
+        R, dv, dp, dt_sum, H_Rg, H_va, H_vg, H_pa, H_pg, cov = state
+        valid = mask[k]
+        dt = torch.where(valid, dts[k], 0.0)
+        a = acc[k] - ba
+        wdt = (gyro[k] - bg) * dt
+        R_inc = so3_exp(wdt)
+        Jr = _right_jacobian(wdt)
+        Ra = R @ a
+        A_sk = R @ skew(a)
+        A = torch.cat([
+            torch.cat([R_inc.T, Z, Z], dim=1),
+            torch.cat([-A_sk * dt, eye, Z], dim=1),
+            torch.cat([-0.5 * A_sk * dt * dt, eye * dt, eye], dim=1)])
+        JrT = Jr * dt
+        Q = torch.block_diag(JrT @ JrT.T * sig_g2 / torch.clamp(dt, min=1e-12),
+                             eye * (sig_a2 * dt), eye * (sig_i2 * dt))
+        new = (R @ R_inc, dv + Ra * dt, dp + dv * dt + 0.5 * Ra * dt * dt, dt_sum + dt,
+               R_inc.T @ H_Rg - Jr * dt, H_va - R * dt, H_vg - A_sk @ H_Rg * dt,
+               H_pa + H_va * dt - 0.5 * R * dt * dt,
+               H_pg + H_vg * dt - 0.5 * A_sk @ H_Rg * dt * dt, A @ cov @ A.T + Q)
+        state = tuple(torch.where(valid, n, o) for n, o in zip(new, state))
+    R, dv, dp, dt_sum, H_Rg, H_va, H_vg, H_pa, H_pg, cov = state
+    return PreintegratedImu(dR=R, dv=dv, dp=dp, dt=dt_sum, H_Rg=H_Rg, H_va=H_va,
+                            H_vg=H_vg, H_pa=H_pa, H_pg=H_pg, cov=cov, bias=bias)
+
+
 def preintegrate(acc: torch.Tensor, gyro: torch.Tensor, dts: torch.Tensor,
                  mask: torch.Tensor, bias: torch.Tensor, acc_noise, gyro_noise,
                  int_noise) -> PreintegratedImu:

@@ -157,9 +157,25 @@ def se3_inv(T: torch.Tensor) -> torch.Tensor:
     return make_se3(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
 
 
+def se3_mul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply SE3 (4, 4) to points (N, 3)."""
     return pts @ T[:3, :3].T + T[:3, 3]
+
+
+def se3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """Right-multiplicative retraction T * exp(xi) (GTSAM convention)."""
+    return T @ se3_exp(xi)
+
+
+def se3_interpolate(T0: torch.Tensor, T1: torch.Tensor, a) -> torch.Tensor:
+    """T0 * exp(a * log(T0^-1 T1)); a scalar, or (...,) for batched poses."""
+    d = se3_log(se3_inv(T0) @ T1)
+    a = torch.as_tensor(a, dtype=d.dtype, device=d.device)
+    return T0 @ se3_exp(a[..., None] * d if a.dim() else a * d)
 
 
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:

@@ -14,14 +14,21 @@ from typing import Optional, Tuple
 
 import torch
 
+from glim_tpu_torch.ops.lie import transform_points  # noqa: F401  (the JAX module's name)
+
 # Large sentinel so invalid lanes sort to the end of any key ordering.
 INVALID_HASH = 2**31 - 1
 _M32 = 0xFFFFFFFF
 
 
+def fast_floor(x: torch.Tensor) -> torch.Tensor:
+    """float -> int32 floor (gtsam_points::fast_floor)."""
+    return torch.floor(x).to(torch.int32)
+
+
 def voxel_coords(points: torch.Tensor, inv_resolution) -> torch.Tensor:
     """(..., 3) f32 -> (..., 3) int32 quantized voxel coordinates."""
-    return torch.floor(points * inv_resolution).to(torch.int32)
+    return fast_floor(points * inv_resolution)
 
 
 def _u32(coords: torch.Tensor) -> torch.Tensor:
@@ -209,6 +216,28 @@ def random_sampling(points: torch.Tensor, mask: torch.Tensor, target: int,
     order = lexsort((prio, ~mask))
     out_mask = torch.arange(C, device=points.device) < torch.clamp(mask.sum(), max=target)
     return points[order], out_mask, order
+
+
+def sample(points: torch.Tensor, mask: torch.Tensor,
+           indices: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Select points by index: output lane k is input lane indices[k];
+    negative indices mark invalid output lanes."""
+    idx = torch.clamp(indices, min=0)
+    return points[idx], (indices >= 0) & mask[idx]
+
+
+def compact(points: torch.Tensor, mask: torch.Tensor, *extras: torch.Tensor):
+    """Stable re-pack: valid lanes first, each side in its order, at the
+    same capacity -> (points, mask, *extras), extras permuted alike."""
+    order = torch.sort((~mask).to(torch.uint8), stable=True).indices
+    return (points[order], mask[order]) + tuple(e[order] for e in extras)
+
+
+def merge_point_batches(points_list, masks_list, out_capacity: int):
+    """Concatenate padded batches, then compact them into one batch of
+    ``out_capacity`` lanes."""
+    pts, msk = compact(torch.cat(list(points_list)), torch.cat(list(masks_list)))
+    return pts[:out_capacity], msk[:out_capacity]
 
 
 def distance_filter(points: torch.Tensor, mask: torch.Tensor, near, far) -> torch.Tensor:

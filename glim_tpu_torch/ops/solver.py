@@ -1,8 +1,8 @@
 """Dense damped Gauss-Newton solve, the host-loop LM and Schur marginalization.
 
-Twin of ``glim_tpu/ops/solver.py``'s ``solve_damped``, ``lm_optimize`` (with
-``TerminationCriteria``, ``LMStatus``, ``LMResult``) and
-``schur_marginalize``.
+Twin of ``glim_tpu/ops/solver.py``: ``solve_damped``, ``lm_optimize`` (with
+``TerminationCriteria``, ``LMStatus``, ``LMResult``), the fixed-count
+``gn_optimize_scan``, ``schur_marginalize`` and ``scatter_block``.
 ``jnp.linalg.cholesky`` returns NaN on a non-PD matrix where
 ``torch.linalg.cholesky`` raises, so the factorisations here are the
 ``*_ex`` variants, and the LU fallback is selected with ``torch.where`` on
@@ -37,6 +37,18 @@ def solve_damped(H: torch.Tensor, b: torch.Tensor, lam) -> torch.Tensor:
     x_lu = torch.linalg.solve_ex(A, b)[0]
     ok = (info == 0) & torch.all(torch.isfinite(x))
     return -torch.where(ok, x, x_lu)
+
+
+def gn_optimize_scan(linearize_fn, retract_fn, x0, num_iters: int = 8, lam: float = 1e-6):
+    """Gauss-Newton for a fixed number of iterations at constant damping ->
+    (x, errs (num_iters,)), errs[k] the error linearized at iteration k. No
+    host read between iterations: the loop only queues device work."""
+    x, errs = x0, []
+    for _ in range(num_iters):
+        H, b, err = linearize_fn(x)
+        x = retract_fn(x, solve_damped(H, b, lam))
+        errs.append(err)
+    return x, torch.stack(errs)
 
 
 def schur_marginalize(H: torch.Tensor, b: torch.Tensor, n_keep: int):
@@ -144,3 +156,15 @@ def lm_optimize(linearize_fn: Callable[[Any], Tuple[torch.Tensor, torch.Tensor, 
     result.x = x
     result.error = err
     return result
+
+
+def scatter_block(H: torch.Tensor, b: torch.Tensor, Hblk: torch.Tensor,
+                  bblk: Optional[torch.Tensor], i: int, j: int, di: int = 6, dj: int = 6):
+    """Add a (di, dj) block at block position (i, j) and, unless ``bblk`` is
+    None, the b-block at i -> (H, b), new tensors."""
+    H = H.clone()
+    H[i * di:(i + 1) * di, j * dj:(j + 1) * dj] += Hblk
+    if bblk is not None:
+        b = b.clone()
+        b[i * di:(i + 1) * di] += bblk
+    return H, b

@@ -61,6 +61,10 @@ class GaussianVoxelMap:
     def valid(self) -> torch.Tensor:
         return self.hash != INVALID_HASH
 
+    def num_voxels(self) -> torch.Tensor:
+        """Count of valid voxels, a 0-dim tensor on the map's device."""
+        return torch.sum(self.valid)
+
 
 def empty_gaussian_voxelmap(capacity: int, resolution, device) -> GaussianVoxelMap:
     """``resolution`` is a float or a 0-dim tensor; a tensor already on
@@ -273,6 +277,10 @@ class PointVoxelMap:
     @property
     def capacity(self) -> int:
         return int(self.points.shape[0])
+
+    def num_points(self) -> torch.Tensor:
+        """Count of valid points, a 0-dim tensor on the map's device."""
+        return torch.sum(self.mask)
 
 
 def empty_point_voxelmap(capacity: int, min_dist, lru_horizon: int = 2**30, *,

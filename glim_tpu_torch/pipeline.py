@@ -35,8 +35,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from glim_tpu_torch.mapping.async_global_mapping import AsyncGlobalMapping
-from glim_tpu_torch.mapping.async_sub_mapping import AsyncSubMapping
 from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks
 from glim_tpu_torch.mapping.global_mapping_base import GlobalMappingBase
 from glim_tpu_torch.mapping.sub_mapping_base import SubMappingBase
@@ -46,9 +44,8 @@ from glim_tpu_torch.preprocess.cloud_preprocessor import (CloudPreprocessor,
                                                           CloudPreprocessorParams)
 from glim_tpu_torch.types import EstimationFrame, RawPoints, SubMap
 from glim_tpu_torch.utils.config import GlobalConfig, create_default_config_dir
-from glim_tpu_torch.utils.data_validator import DataValidator
 from glim_tpu_torch.utils.extension_module import ExtensionModule
-from glim_tpu_torch.utils.logging import create_module_logger
+from glim_tpu_torch.utils.logging import configure_logging, create_module_logger
 from glim_tpu_torch.utils.profiling import profile_scope, report
 from glim_tpu_torch.utils.time_keeper import PerPointTimeSettings, TimeKeeper
 from glim_tpu_torch.utils.trajectory_manager import TrajectoryManager
@@ -77,6 +74,15 @@ class GlimTorch:
         self.config = GlobalConfig.instance(config_path)
         for logical, module, name, value in (overrides or []):
             self.config.get_config(logical).override_param(module, name, value)
+
+        # Before the first import of a module whose logger takes a file sink
+        # (global, sub, validator): a logger is set up once, when made.
+        log_cfg = self.config.get_config("config_logging")
+        configure_logging(log_dir=log_cfg.param("logging", "log_dir", None),
+                          save_logs=log_cfg.param("logging", "save_logs", False))
+        from glim_tpu_torch.mapping.async_global_mapping import AsyncGlobalMapping
+        from glim_tpu_torch.mapping.async_sub_mapping import AsyncSubMapping
+        from glim_tpu_torch.utils.data_validator import DataValidator
 
         sensors = self.config.get_config("config_sensors")
         self.T_lidar_imu = sensors.param_se3("sensors", "T_lidar_imu")

@@ -26,7 +26,9 @@ Usage: python -m glim_tpu_torch.tools.glim_runner <dataset_dir | bag> [--config 
 
 The pipeline runs on the card unless ``--device cpu`` is given.
 ``--viewer-stream`` writes the run stream (``viewer/standard_viewer.py``;
-replay it with ``viewer/watch.html`` or ``tools/watch.py``).
+replay it with ``viewer/watch.html`` or ``tools/watch.py``); each line's
+``stats`` carry the back-end's ``global_optimization`` and
+``loop_detection`` toggles, which the page shows.
 ``--commands`` tails a JSONL file of live corrections applied to the
 running graph (``viewer/interactive_viewer.execute_command``; ``pause`` /
 ``resume`` / ``step`` act on the feed loop). The pipeline's ``ok()`` going
@@ -297,8 +299,10 @@ def main(argv=None, on_scan=None) -> dict:
     glim = GlimTorch(config_path=args.config, async_mode=True, device=args.device)
     viewer = None
     if args.viewer_stream:
+        from glim_tpu_torch.viewer.interactive_viewer import backend_flags
         from glim_tpu_torch.viewer.standard_viewer import StandardViewer
-        viewer = StandardViewer(stream_path=args.viewer_stream, stream_interval=0.5)
+        viewer = StandardViewer(stream_path=args.viewer_stream, stream_interval=0.5,
+                                stats_fn=lambda: backend_flags(glim.global_backend))
         print(f"viewer stream -> {args.viewer_stream} (open glim_tpu_torch/viewer/watch.html, "
               f"or python -m glim_tpu_torch.tools.watch --stream {args.viewer_stream})")
     controls = {"paused": False, "step": 0}

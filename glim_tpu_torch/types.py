@@ -87,6 +87,15 @@ class PointBatch:
     covs: Optional[torch.Tensor] = None         # (C, 3, 3) f32
     normals: Optional[torch.Tensor] = None      # (C, 3) f32
 
+    @property
+    def capacity(self) -> int:
+        return int(self.points.shape[0])
+
+    def num_valid(self) -> int:
+        """The valid lane count: a host read of the mask's sum, which waits
+        for the device work that makes the mask."""
+        return int(self.mask.sum())
+
     @staticmethod
     def from_numpy(points: np.ndarray, times: Optional[np.ndarray] = None,
                    intensities: Optional[np.ndarray] = None,

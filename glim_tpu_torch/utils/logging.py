@@ -14,6 +14,7 @@ import logging
 import logging.handlers
 import os
 import sys
+import tempfile
 import threading
 from typing import Deque, List, Optional
 
@@ -26,6 +27,12 @@ _save_logs = False
 _rotate_logs = True
 _max_file_size_kb = 8192
 _max_files = 10
+
+# The module loggers that never write a file: the pipeline front end's, which
+# the JAX package makes before its pipeline applies config_logging. Every other
+# logger made while save_logs is set writes log_dir/glim_<name>.log.
+STDOUT_ONLY_LOGGERS = frozenset(
+    {"config", "ext", "glim", "odom", "preprocess", "prof", "registry", "time"})
 
 
 class _RingBufferHandler(logging.Handler):
@@ -44,10 +51,14 @@ def get_ringbuffer_lines(n: int = 128) -> List[str]:
 def configure_logging(log_dir: Optional[str] = None, save_logs: bool = False,
                       rotate_logs: bool = True, max_file_size_kb: int = 8192,
                       max_files: int = 10, level: int = logging.INFO) -> None:
-    """Apply config_logging.json settings (reference: config/config_logging.json)."""
+    """Apply config_logging.json settings (reference: config/config_logging.json)
+    to the loggers made from now on. A ``log_dir`` of "/tmp", the default, is
+    read as the directory ``tempfile.gettempdir()`` names (``TMPDIR`` where it
+    is set), so that runs with temporary directories of their own keep their
+    log files apart."""
     global _log_dir, _save_logs, _rotate_logs, _max_file_size_kb, _max_files
     with _lock:
-        _log_dir = log_dir
+        _log_dir = tempfile.gettempdir() if log_dir == "/tmp" else log_dir
         _save_logs = save_logs
         _rotate_logs = rotate_logs
         _max_file_size_kb = max_file_size_kb
@@ -56,7 +67,9 @@ def configure_logging(log_dir: Optional[str] = None, save_logs: bool = False,
 
 
 def create_module_logger(name: str) -> logging.Logger:
-    """Named module logger: stdout + shared ring buffer (+ file sink if enabled)."""
+    """Named module logger: stdout + shared ring buffer, plus a file sink if
+    save_logs is set when it is first made and ``name`` is not one of
+    STDOUT_ONLY_LOGGERS."""
     logger = logging.getLogger(f"glim_tpu_torch.{name}")
     with _lock:
         if getattr(logger, "_glim_configured", False):
@@ -70,7 +83,7 @@ def create_module_logger(name: str) -> logging.Logger:
         rb = _RingBufferHandler()
         rb.setFormatter(fmt)
         logger.addHandler(rb)
-        if _save_logs and _log_dir:
+        if _save_logs and _log_dir and name not in STDOUT_ONLY_LOGGERS:
             os.makedirs(_log_dir, exist_ok=True)
             path = os.path.join(_log_dir, f"glim_{name}.log")
             if _rotate_logs:

@@ -223,6 +223,13 @@ class InteractiveViewer:
         export_ply(path, points)
 
 
+def backend_flags(gm) -> dict:
+    """The back-end's two live toggles, as ``status`` and ``set_enabled``
+    read and write them (the runner's viewer stream carries them)."""
+    return dict(global_optimization=bool(gm.params.enable_optimization),
+                loop_detection=bool(getattr(gm, "loop_search_enabled", True)))
+
+
 def execute_command(viewer: InteractiveViewer, cmd: dict) -> dict:
     """Execute one JSON command against a viewer (the dispatcher shared by
     glim_runner's --commands poller and watch.py's POST /command).
@@ -294,9 +301,7 @@ def execute_command(viewer: InteractiveViewer, cmd: dict) -> dict:
             gm = viewer.gm
             with viewer.lock:
                 n = len(gm.submaps)
-            return dict(ok=True, live=viewer.live, submaps=n,
-                        global_optimization=gm.params.enable_optimization,
-                        loop_detection=getattr(gm, "loop_search_enabled", True))
+            return dict(ok=True, live=viewer.live, submaps=n, **backend_flags(gm))
         return dict(ok=False, error=f"unknown command {name!r}")
     except INPUT_ERRORS as e:        # interactive input: reported, not fatal
         logger.warning("command %s failed: %s", name, e)

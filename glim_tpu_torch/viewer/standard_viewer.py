@@ -69,8 +69,11 @@ def _thinned(copies: tuple, budget: int) -> np.ndarray:
 
 class StandardViewer(ExtensionModule):
     def __init__(self, report_interval: float = 10.0, config=None, stream_path=None,
-                 stream_interval=None):
+                 stream_interval=None, stats_fn=None):
+        """``stats_fn``, if given, returns a dict merged into each stream
+        line's ``stats`` (the runner's: the back-end's live toggles)."""
         self.report_interval = report_interval
+        self.stats_fn = stats_fn
         # Rendering hints (reference standard_viewer.cpp:70-100 GUI knobs),
         # carried in snapshot() for external renderers.
         g = (lambda k, d: config.param("standard_viewer", k, d)) if config \
@@ -215,6 +218,8 @@ class StandardViewer(ExtensionModule):
             pending, self._pending_clouds = self._pending_clouds, {}
             factors = list(self._factors) if self._factors_dirty else None
             self._factors_dirty = False
+        if self.stats_fn is not None:
+            stats.update(self.stats_fn())
         clouds = {k: _thinned(c, self.cloud_budget) for k, c in pending.items()}
         self.stream.emit(frame.stamp, odom_new, submaps, scan_world, stats,
                          clouds=clouds or None, factors=factors)
