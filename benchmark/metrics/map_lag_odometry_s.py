@@ -1,0 +1,13 @@
+"""Mean s over the window of the program's `map_lag/odometry` entry
+(glim_tpu_torch/mapping/global_mapping_base.py `record_map_lag`), one of the
+five stages of a submap's map lag, recorded as the first optimize that covers
+the submap ends: the newest frame handed to `GlimTorch.insert_frame` until its
+odometry estimate is made: preprocessing, the input queue, the IMU hold-back,
+the window step."""
+
+from benchmark.readers import scope_mean_ms
+
+
+def read(run):
+    ms = scope_mean_ms(run, "map_lag/odometry")
+    return None if ms is None else ms / 1e3

@@ -1,0 +1,12 @@
+"""Mean s over the window of the program's `map_lag/optimize` entry
+(glim_tpu_torch/mapping/global_mapping_base.py `record_map_lag`), one of the
+five stages of a submap's map lag, recorded as the first optimize that covers
+the submap ends: the insert ended until the first optimize that covers the
+submap ends: the wait for it, and the optimize."""
+
+from benchmark.readers import scope_mean_ms
+
+
+def read(run):
+    ms = scope_mean_ms(run, "map_lag/optimize")
+    return None if ms is None else ms / 1e3

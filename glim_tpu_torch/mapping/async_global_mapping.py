@@ -120,10 +120,11 @@ class AsyncGlobalMapping:
         needs = getattr(self.global_mapping, "needs_optimize", None)
         return self._optimization_enabled() and (needs is None or needs())
 
-    def _apply_factor_request(self, req: tuple) -> None:
+    def _apply_factor_request(self, req: tuple) -> bool:
         """Apply one extension request; a kind the back-end has no method
         for is skipped with a warning (the pose graph takes no translation
-        prior), as in the JAX wrapper."""
+        prior), as in the JAX wrapper. True when the request asks for an
+        optimize (a between factor)."""
         gm = self.global_mapping
         if req[0] == "tp" and hasattr(gm, "add_translation_prior"):
             gm.add_translation_prior(req[1], req[2], req[3])
@@ -133,11 +134,12 @@ class AsyncGlobalMapping:
             gm.add_loop_candidate(req[1], req[2])   # the pose graph validates it first
         elif req[0] == "between" and hasattr(gm, "add_between_factor"):
             gm.add_between_factor(req[1], req[2], req[3], req[4])
-            self._request_optimize.set()
+            return True
         else:
             self.skipped_requests += 1
             logger.warning("%s has no method for a %r request; skipped",
                            type(gm).__name__, req[0])
+        return False
 
     def _run(self) -> None:
         while True:
@@ -145,51 +147,27 @@ class AsyncGlobalMapping:
             for stamp, acc, gyro in self.input_imu_queue.get_all_and_clear():
                 self.global_mapping.insert_imu(stamp, acc, gyro)
             submaps = self.input_submap_queue.get_all_and_clear_wait(timeout=0.05)
-            with self._mutex, profile_scope("global_mapping"):
+            with self._mutex:
                 gm = self.global_mapping
-                # A backlog costs one solve after the burst instead of one
-                # per insert; once the drain is flagged, every insert defers
-                # and the final solve below covers them.
                 draining = eos or self._draining.is_set()
-                defer = (len(submaps) > 1 or draining) and hasattr(gm, "defer_optimization")
-                if defer:
-                    gm.defer_optimization = True
-                for sm in submaps:
-                    gm.insert_submap(sm)
-                    self._last_optimization = time.time()
-                if defer:
-                    gm.defer_optimization = False
-                    if not draining:
-                        if self._needs_optimize():
-                            gm.optimize()
-                        self._last_optimization = time.time()
-
-                for req in self._request_factors.get_all_and_clear():
-                    try:
-                        self._apply_factor_request(req)
-                    except (ValueError, IndexError, np.linalg.LinAlgError) as e:
-                        # Extension input: a malformed request is reported
-                        # and dropped, never fatal to the map.
-                        logger.warning("extension factor request %s failed: %s", req[0], e)
-
-                if self._request_optimize.is_set():
-                    self._request_optimize.clear()
-                    if self._optimization_enabled():
-                        gm.optimize()
-                    self._last_optimization = time.time()
-                if self._request_recover.is_set():
-                    self._request_recover.clear()
-                    gm.recover_graph()
-                for min_overlap in self._request_overlap.get_all_and_clear():
-                    gm.find_overlapping_submaps(min_overlap)
-
+                # Each source is read once a poll; the stage's scope spans
+                # the polls that have work, and no idle one.
+                factors = self._request_factors.get_all_and_clear()
+                overlaps = self._request_overlap.get_all_and_clear()
+                optimize = _take(self._request_optimize)
+                recover = _take(self._request_recover)
                 # Periodic idle optimization (reference: :96-118), only when
                 # the graph changed since the last solve.
-                if (not draining and time.time() - self._last_optimization
-                        > self.optimization_interval):
-                    if self._needs_optimize():
-                        gm.optimize()
-                    self._last_optimization = time.time()
+                idle_optimize = False
+                now = time.time()
+                if not (draining or submaps or optimize) \
+                        and now - self._last_optimization > self.optimization_interval:
+                    self._last_optimization = now
+                    idle_optimize = self._needs_optimize()
+                if submaps or factors or overlaps or optimize or recover or idle_optimize:
+                    with profile_scope("global_mapping"):
+                        self._work(gm, draining, submaps, factors, optimize, recover,
+                                   overlaps, idle_optimize)
 
             if eos and self.input_submap_queue.empty() and not submaps:
                 with self._mutex, profile_scope("global_mapping"):
@@ -203,3 +181,51 @@ class AsyncGlobalMapping:
                     if hasattr(gm, "stop"):
                         gm.stop()
                 break
+
+    def _work(self, gm, draining: bool, submaps, factors, optimize: bool,
+              recover: bool, overlaps, idle_optimize: bool) -> None:
+        """One busy poll of the worker, under the mutex, on what ``_run``
+        read: the submaps, the requests, and the periodic optimize."""
+        # A backlog costs one solve after the burst instead of one per
+        # insert; once the drain is flagged, every insert defers and the
+        # final solve covers them.
+        defer = (len(submaps) > 1 or draining) and hasattr(gm, "defer_optimization")
+        if defer:
+            gm.defer_optimization = True
+        for sm in submaps:
+            gm.insert_submap(sm)
+            self._last_optimization = time.time()
+        if defer:
+            gm.defer_optimization = False
+            if not draining:
+                if self._needs_optimize():
+                    gm.optimize()
+                self._last_optimization = time.time()
+
+        for req in factors:
+            try:
+                optimize |= self._apply_factor_request(req)
+            except (ValueError, IndexError, np.linalg.LinAlgError) as e:
+                # Extension input: a malformed request is reported
+                # and dropped, never fatal to the map.
+                logger.warning("extension factor request %s failed: %s", req[0], e)
+
+        if optimize:
+            if self._optimization_enabled():
+                gm.optimize()
+            self._last_optimization = time.time()
+        if recover:
+            gm.recover_graph()
+        for min_overlap in overlaps:
+            gm.find_overlapping_submaps(min_overlap)
+        if idle_optimize and not optimize:
+            gm.optimize()
+            self._last_optimization = time.time()
+
+
+def _take(flag: threading.Event) -> bool:
+    """Read and clear a request flag."""
+    if flag.is_set():
+        flag.clear()
+        return True
+    return False

@@ -37,6 +37,7 @@ compiles one program per shape).
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -47,7 +48,7 @@ from torch.profiler import record_function
 from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks as CB
 from glim_tpu_torch.mapping.global_factors import (bucket, global_gn, pad_stack,
                                                    pad_stack_tree)
-from glim_tpu_torch.mapping.global_mapping_base import GlobalMappingBase
+from glim_tpu_torch.mapping.global_mapping_base import GlobalMappingBase, record_map_lag
 from glim_tpu_torch.ops import gicp, lie, lie_np, solver
 from glim_tpu_torch.ops import voxelmap as vmx
 from glim_tpu_torch.ops.pointops import INVALID_HASH
@@ -246,6 +247,8 @@ class GlobalMapping(GlobalMappingBase):
         if p.enable_imu and i > 0:
             with record_function("global/ins.imu_factor"):
                 self._create_imu_factor(i - 1, i)
+        # The insert's own work ends here, before an optimize it runs.
+        submap.host_stamps["inserted"] = time.perf_counter()
         due = (i + 1 - self._last_opt_count) >= p.optimization_interval_submaps
         if p.enable_optimization and not self.defer_optimization \
                 and (self._new_loop_since_opt or due):
@@ -792,6 +795,7 @@ class GlobalMapping(GlobalMappingBase):
             if n_stale == 0:
                 break
         CB.on_smoother_update_result(self, dict(error=err))
+        record_map_lag(self.submaps)
         CB.on_update_submaps(self.submaps)
 
     def find_overlapping_submaps(self, min_overlap: float) -> None:

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from glim_tpu_torch.mapping.callbacks import GlobalMappingCallbacks as CB
-from glim_tpu_torch.mapping.global_mapping_base import GlobalMappingBase
+from glim_tpu_torch.mapping.global_mapping_base import GlobalMappingBase, record_map_lag
 from glim_tpu_torch.ops import covariance as cov_ops
 from glim_tpu_torch.ops import gicp, knn, lie, lie_np, solver
 from glim_tpu_torch.ops import registration as reg
@@ -414,6 +414,8 @@ class GlobalMappingPoseGraph(GlobalMappingBase):
             self._collect_detected_loops()
         else:
             self._eval_candidates(p.loop_candidate_eval_per_insert)
+        # The insert's own work ends here, before an optimize it runs.
+        submap.host_stamps["inserted"] = time.perf_counter()
         if p.enable_optimization and not self.defer_optimization:
             self.optimize()
 
@@ -642,6 +644,7 @@ class GlobalMappingPoseGraph(GlobalMappingBase):
         for k in range(N):
             self.poses[k] = _orthonormalize(new_poses[k])
             self.submaps[k].T_world_origin = self.poses[k].copy()
+        record_map_lag(self.submaps)
         CB.on_update_submaps(self.submaps)
 
     # -- output --

@@ -30,6 +30,7 @@ all when it starts, and reads its result once.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -376,6 +377,9 @@ class SubMapping(SubMappingBase):
     def get_submaps(self) -> List[SubMap]:
         out = self.submap_queue
         self.submap_queue = []
+        now = time.perf_counter()
+        for sm in out:
+            sm.host_stamps["sub_mapping"] = now
         return out
 
     def submit_end_of_sequence(self) -> List[SubMap]:

@@ -16,6 +16,7 @@ overrides them with its point map.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -36,6 +37,7 @@ from glim_tpu_torch.ops.pointops import median_distance
 from glim_tpu_torch.types import (EstimationFrame, FrameID, HostCopy, PointBatch,
                                   PreprocessedFrame, to_numpy, upload)
 from glim_tpu_torch.utils.logging import create_module_logger
+from glim_tpu_torch.utils.profiling import profile_scope
 from glim_tpu_torch.utils.registry import register_module
 
 logger = create_module_logger("odom")
@@ -325,7 +327,7 @@ class OdometryEstimationIMU(OdometryEstimationBase):
                                       frame.scan_end_time,
                                       frame.stamp - self._t0, evict)
 
-        with record_function("window_scan_step"):
+        with profile_scope("window_scan_step"):
             self.window, out = window_scan_step(
                 self.window, self.model,
                 frame.device_points, frame.device_times, frame.device_mask,
@@ -355,6 +357,7 @@ class OdometryEstimationIMU(OdometryEstimationBase):
                 # The evicted frame sat at slot W - n_prev (pre-roll).
                 slot = self.W - (len(self._est_frames) + 1)
                 self._attach_covs(marg_est, self._last_state_covs[slot])
+            marg_est.host_stamps["marginalized"] = time.perf_counter()
             CB.on_marginalized_frames([marg_est])
             if marginalized is not None:
                 marginalized.append(marg_est)
@@ -370,6 +373,7 @@ class OdometryEstimationIMU(OdometryEstimationBase):
                              times=frame.device_times, covs=out["covs"],
                              normals=out["normals"]),
             raw_frame=frame)
+        est.host_stamps = dict(frame.host_stamps, estimate=time.perf_counter())
         est.custom_data["device_T_world_imu"] = out["T_wi"]
         if "state_covs" in out:
             self._last_state_covs = out["state_covs"]
@@ -404,6 +408,9 @@ class OdometryEstimationIMU(OdometryEstimationBase):
                 e.T_world_lidar = T_wl_all[k]
                 e.v_world_imu = v_all[k]
                 e.imu_bias = b_all[k]
+        now = time.perf_counter()
+        for e in self._est_frames:
+            e.host_stamps["marginalized"] = now
         out = self._est_frames
         self._est_frames = []
         return out
@@ -545,6 +552,7 @@ class OdometryEstimationIMU(OdometryEstimationBase):
             frame=PointBatch(points=frame.device_points, mask=frame.device_mask,
                              times=frame.device_times, covs=covs, normals=normals),
             raw_frame=frame)
+        est.host_stamps = dict(frame.host_stamps, estimate=time.perf_counter())
         est.v_world_imu = v0
         est.imu_bias = b0
         est.custom_data["device_T_world_imu"] = T0_d

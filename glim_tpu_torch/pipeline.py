@@ -30,6 +30,7 @@ another.
 from __future__ import annotations
 
 import tempfile
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -143,12 +144,14 @@ class GlimTorch:
         self.global_mapping.insert_imu(stamp, linear_acc, angular_vel)
 
     def insert_frame(self, raw: RawPoints) -> None:
+        handover = time.perf_counter()
         self.data_validator.points_callback(raw)
         if not self.time_keeper.process(raw):
             logger.warning("dropping scan at %.6f", raw.stamp)
             return
         with profile_scope("preprocess"):
             frame = self.preprocessor.preprocess(raw)
+        frame.host_stamps["handover"] = handover
         if not self.keep_raw_points:
             frame.raw_points = None
         if self.async_mode:

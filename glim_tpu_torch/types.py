@@ -163,6 +163,9 @@ class PreprocessedFrame:
         self._points = points
         self._times = times
         self._neighbors = neighbors
+        # Host-clock stamps along the pipeline (mapping/global_mapping_base.py
+        # ``record_map_lag``); never written to a dump.
+        self.host_stamps: Dict[str, float] = {}
 
     @property
     def points(self) -> Optional[np.ndarray]:
@@ -236,6 +239,9 @@ class EstimationFrame:
         self.raw_frame = raw_frame
         self.voxelmaps = [] if voxelmaps is None else voxelmaps
         self.custom_data = {} if custom_data is None else custom_data
+        # Host-clock stamps along the pipeline (mapping/global_mapping_base.py
+        # ``record_map_lag``); a clone shares them, no dump writes them.
+        self.host_stamps: Dict[str, float] = {}
         # In-flight packed-state copy: (HostCopy, need_T, need_v, need_b).
         self._state_pending = None
         # Serializes fetch_state among the threads that take in this frame
@@ -414,6 +420,9 @@ class SubMap:
     frames: List[EstimationFrame] = field(default_factory=list)       # optimized
     odom_frames: List[EstimationFrame] = field(default_factory=list)  # raw odometry
     custom_data: Dict[str, Any] = field(default_factory=dict)
+    # Host-clock stamps along the pipeline (mapping/global_mapping_base.py
+    # ``record_map_lag``); never written to a dump.
+    host_stamps: Dict[str, float] = field(default_factory=dict, repr=False, compare=False)
 
     def drop_frame_points(self) -> None:
         self.frames = [f.clone_wo_points() for f in self.frames]
