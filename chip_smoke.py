@@ -1148,6 +1148,7 @@ EXT_SCANS = 100                       # 11a: phase 5's sequence cut from 150 sca
 # after ~105 scans; 80 would end the feed before the stream reports three.
 LIVE_SCANS = 120
 LIVE_TRIGGER_SUBMAPS = 3
+LIVE_SLOW_SCANS = 15
 STREAM_STATS = ("frames", "keyframes", "submaps", "mb")
 # The runner's stream adds the back-end's live toggles to each line's stats
 # (the watch page shows them).
@@ -1616,8 +1617,14 @@ def run_live_corrections(device, n_scans: int = LIVE_SCANS, n_scan_points: int =
         def on_scan(i):
             # The last scan waits for the commands (the workers go on
             # draining meanwhile), so they are polled before the feed ends.
+            # The helper sees the back-end only through the stream, which a
+            # new frame writes: the LIVE_SLOW_SCANS scans before the last
+            # wait up to a second each, so that a fast odometry does not
+            # reach the last scan before a line shows the third submap.
             if i == n_scans - 1:
                 ready.wait(300.0)
+            elif i >= n_scans - 1 - LIVE_SLOW_SCANS:
+                ready.wait(1.0)
         MLC.align = counted_align
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)

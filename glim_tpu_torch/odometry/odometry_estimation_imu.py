@@ -4,8 +4,9 @@ Twin of ``glim_tpu/odometry/odometry_estimation_imu.py``: per-scan IMU
 preintegration and prediction, IMU-rate deskewing, matching against a map
 model, and joint optimisation of pose/velocity/bias over a
 ``smoother_lag``-sized window with marginalisation priors — all in one
-``window_scan_step`` call per scan. The host packs the IMU window, calls the
-step, and decodes the small status vector ``_status_lag`` scans late.
+``window_scan_step`` call per scan (replayed from a CUDA graph on the card,
+``window_graph.py``). The host packs the IMU window, calls the step, and
+decodes the small status vector ``_status_lag`` scans late.
 
 The map model is a set of hooks. Here they are the flagship's: multi-
 resolution Gaussian voxel maps matched by VGICP, whose contents the
@@ -29,8 +30,8 @@ from glim_tpu_torch.odometry.estimation_base import OdometryEstimationBase
 from glim_tpu_torch.odometry.keyframe_manager import KeyframeManager
 from glim_tpu_torch.odometry.window_estimator import (
     OLD_SUBSAMPLE, STATUS_DROT, STATUS_DTRANS, STATUS_FINITE, STATUS_LOGDET,
-    STATUS_OVERLAP, STATUS_POSES, WindowState, _set_last, empty_window,
-    window_scan_step)
+    STATUS_OVERLAP, STATUS_POSES, WindowState, _set_last, empty_window)
+from glim_tpu_torch.odometry.window_graph import WindowGraphRunner
 from glim_tpu_torch.ops import covariance as cov_ops
 from glim_tpu_torch.ops import voxelmap as vmx
 from glim_tpu_torch.ops.pointops import median_distance
@@ -178,6 +179,8 @@ class OdometryEstimationIMU(OdometryEstimationBase):
         self._max_corr_dist = 2.0           # used by the "gicp" mode only
         self.keyframes: Optional[KeyframeManager] = None   # lazy (needs C)
         self.window: Optional[WindowState] = None          # lazy (needs C)
+        # window_scan_step, replayed from a CUDA graph on the card.
+        self._window_step = WindowGraphRunner()
         self._est_frames: List[EstimationFrame] = []
 
         # Constant step arguments, uploaded once as f32 (a float64 numpy
@@ -328,7 +331,7 @@ class OdometryEstimationIMU(OdometryEstimationBase):
                                       frame.stamp - self._t0, evict)
 
         with profile_scope("window_scan_step"):
-            self.window, out = window_scan_step(
+            self.window, out = self._window_step(
                 self.window, self.model,
                 frame.device_points, frame.device_times, frame.device_mask,
                 frame.device_neighbors, imu_packed,

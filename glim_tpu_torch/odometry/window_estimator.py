@@ -262,7 +262,8 @@ def window_scan_step(win: WindowState, vms,
                      matching_weight, T_last_keyframe, max_corr_dist,
                      vel_reg=None, *, W: int, outer_iters: int = 2,
                      inner_iters: int = 2, compute_covs: bool = False,
-                     matching: str = "vgicp", full_connection: int = 2):
+                     matching: str = "vgicp", full_connection: int = 2,
+                     search=None):
     """One odometry step. Returns (win', outputs dict).
 
     ``imu_packed`` is the (cap+1, 8) per-scan upload: rows 0..cap-1 are IMU
@@ -271,7 +272,9 @@ def window_scan_step(win: WindowState, vms,
     ``matching="vgicp"`` takes the multi-resolution GaussianVoxelMaps (a
     tuple, or one map) and matches against every level;
     ``matching="gicp"`` takes one PointVoxelMap and searches the nearest
-    map point (capped at max_corr_dist) with ``nn_search``."""
+    map point (capped at max_corr_dist) with ``nn_search``, or with
+    ``search`` where given (a graph capture breaks there:
+    ``window_graph.py``)."""
     if matching not in ("gicp", "vgicp"):
         raise ValueError(f"window_scan_step: unknown matching {matching!r}")
     dev = scan_pts.device
@@ -297,7 +300,8 @@ def window_scan_step(win: WindowState, vms,
         def lookup_soa(T_wl, pts, mask):
             """Nearest map point per scan point, relaid out to SoA."""
             q = pts @ T_wl[:3, :3].T + T_wl[:3, 3]
-            idx, d2 = nn_search(q, mask, pm.points, pm.mask)
+            idx, d2 = (nn_search if search is None else search)(
+                q, mask, pm.points, pm.mask)
             idx = idx.to(torch.int64)
             hit = mask & (d2 < max_d2) & torch.isfinite(d2)
             return [(pm.points[idx].T, gicp.sym_pack_soa(pm.covs[idx]), hit)]
