@@ -19,10 +19,18 @@ where only the tiny location-consistency prior constrains the begin pose, is
 discarded on the host (``step`` is a host int), so nothing of it reaches the
 pose, the twist or the model. Random draws come from the module's own
 ``torch.Generator``.
+
+Spans (``utils/profiling.py``, host time, no device sync): ``ct_scan_step``
+a step, inside it ``ct/lookup`` a model lookup (4 a step at
+``lm_max_iterations`` 8) and ``ct/model_insert``; ``ct/bootstrap_replay``
+once, when the bootstrap scans are replayed. An estimate carries the
+``host_stamps`` of its frame and ``estimate``; a frame that leaves the
+smoother lag gets ``marginalized`` (``record_map_lag``'s stages).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -38,6 +46,7 @@ from glim_tpu_torch.ops.gicp import inv_sym3x3
 from glim_tpu_torch.ops.nn_search import nn_search
 from glim_tpu_torch.types import EstimationFrame, FrameID, PointBatch, PreprocessedFrame
 from glim_tpu_torch.utils.logging import create_module_logger
+from glim_tpu_torch.utils.profiling import profile_scope
 from glim_tpu_torch.utils.registry import register_module
 
 logger = create_module_logger("odom")
@@ -184,26 +193,28 @@ def _model_lookup(model, model_kind: str, mask, max_dist: float):
 
         def lookup(q):
             # Coarse to fine, so the finest level that hits wins.
-            C = q.shape[0]
-            mu = torch.zeros(C, 3, device=q.device)
-            C_t = torch.zeros(C, 3, 3, device=q.device)
-            hit = torch.zeros(C, dtype=torch.bool, device=q.device)
-            for vm, keys in reversed(tables):
-                vidx = vmx.lookup_keys(keys, vm.resolution, q)
-                h = vidx >= 0
-                safe = torch.clamp(vidx, min=0)
-                mu = torch.where(h[:, None], vm.mean[safe], mu)
-                C_t = torch.where(h[:, None, None], vm.cov[safe], C_t)
-                hit = hit | h
-            d2 = torch.sum((mu - q) ** 2, dim=1)
-            return mu, C_t, hit & mask & (d2 < max_d2)
+            with profile_scope("ct/lookup"):
+                C = q.shape[0]
+                mu = torch.zeros(C, 3, device=q.device)
+                C_t = torch.zeros(C, 3, 3, device=q.device)
+                hit = torch.zeros(C, dtype=torch.bool, device=q.device)
+                for vm, keys in reversed(tables):
+                    vidx = vmx.lookup_keys(keys, vm.resolution, q)
+                    h = vidx >= 0
+                    safe = torch.clamp(vidx, min=0)
+                    mu = torch.where(h[:, None], vm.mean[safe], mu)
+                    C_t = torch.where(h[:, None, None], vm.cov[safe], C_t)
+                    hit = hit | h
+                d2 = torch.sum((mu - q) ** 2, dim=1)
+                return mu, C_t, hit & mask & (d2 < max_d2)
         return lookup
 
     def lookup(q):
-        idx, d2 = nn_search(q.contiguous(), mask, model.points, model.mask)
-        idx = idx.to(torch.int64)
-        hit = mask & (d2 < max_d2) & torch.isfinite(d2)
-        return model.points[idx], model.covs[idx], hit
+        with profile_scope("ct/lookup"):
+            idx, d2 = nn_search(q.contiguous(), mask, model.points, model.mask)
+            idx = idx.to(torch.int64)
+            hit = mask & (d2 < max_d2) & torch.isfinite(d2)
+            return model.points[idx], model.covs[idx], hit
     return lookup
 
 
@@ -308,10 +319,11 @@ def _ct_scan_step(T_prev_e, twist_prev, step: int, model, pts, times, mask, neig
     C = w_pts.shape[0]
     rate = 1.0 if step < bootstrap_frames else update_budget / C
     keep = mask & (uniforms < rate)
-    if model_kind == "vgicp":
-        model = tuple(vmx.voxelmap_insert(vm, w_pts, keep, covs_w, step) for vm in model)
-    else:
-        model = vmx.pointmap_insert(model, w_pts, keep, covs_w, step)
+    with profile_scope("ct/model_insert"):
+        if model_kind == "vgicp":
+            model = tuple(vmx.voxelmap_insert(vm, w_pts, keep, covs_w, step) for vm in model)
+        else:
+            model = vmx.pointmap_insert(model, w_pts, keep, covs_w, step)
     return T_b, T_e, twist_new, model, deskewed, covs, normals, errs
 
 
@@ -352,13 +364,14 @@ class OdometryEstimationCT(OdometryEstimationBase):
     def _step(self, T_prev, twist, step, model, pts, times, mask, neighbors, dt, gen):
         p = self.params
         uniforms = torch.rand(pts.shape[0], generator=gen, device=self.device)
-        return _ct_scan_step(
-            T_prev, twist, step, model, pts, times, mask, neighbors, dt, uniforms,
-            p.max_correspondence_distance, p.location_consistency_inf_scale,
-            p.constant_velocity_inf_scale, p.extrapolation_damping,
-            iters=p.lm_max_iterations, bootstrap_frames=p.bootstrap_frames,
-            update_budget=p.update_budget, model_kind=self.model_kind,
-            rigid_refine=bool(p.rigid_refine), anchor_begin=bool(p.anchor_begin))
+        with profile_scope("ct_scan_step"):
+            return _ct_scan_step(
+                T_prev, twist, step, model, pts, times, mask, neighbors, dt, uniforms,
+                p.max_correspondence_distance, p.location_consistency_inf_scale,
+                p.constant_velocity_inf_scale, p.extrapolation_damping,
+                iters=p.lm_max_iterations, bootstrap_frames=p.bootstrap_frames,
+                update_budget=p.update_budget, model_kind=self.model_kind,
+                rigid_refine=bool(p.rigid_refine), anchor_begin=bool(p.anchor_begin))
 
     def insert_frame(self, frame: PreprocessedFrame,
                      marginalized: Optional[List[EstimationFrame]] = None
@@ -375,7 +388,8 @@ class OdometryEstimationCT(OdometryEstimationBase):
             # The twist has converged: rebuild the model by replaying the
             # stored bootstrap scans with it.
             self._boot_done = True
-            self._replay_bootstrap()
+            with profile_scope("ct/bootstrap_replay"):
+                self._replay_bootstrap()
 
         (T_b, T_e, self.twist, self.model, deskewed, covs, normals, _) = self._step(
             self.T_prev_end, self.twist, self.frame_count, self.model,
@@ -389,6 +403,7 @@ class OdometryEstimationCT(OdometryEstimationBase):
             frame=PointBatch(points=deskewed, mask=frame.device_mask,
                              times=frame.device_times, covs=covs, normals=normals),
             raw_frame=frame)
+        est.host_stamps = dict(frame.host_stamps, estimate=time.perf_counter())
         est.custom_data["T_world_lidar_end"] = T_e
         self.frames.append(est)
         self.frame_count += 1
@@ -398,6 +413,9 @@ class OdometryEstimationCT(OdometryEstimationBase):
         margs = []
         while self.frames and self.frames[0].stamp < frame.stamp - p.smoother_lag:
             margs.append(self.frames.pop(0))
+        now = time.perf_counter()
+        for m in margs:
+            m.host_stamps["marginalized"] = now
         if margs:
             CB.on_marginalized_frames(margs)
             if marginalized is not None:
@@ -436,6 +454,9 @@ class OdometryEstimationCT(OdometryEstimationBase):
         self._boot = []
 
     def get_remaining_frames(self) -> List[EstimationFrame]:
+        now = time.perf_counter()
+        for e in self.frames:
+            e.host_stamps["marginalized"] = now
         out = self.frames
         self.frames = []
         return out
