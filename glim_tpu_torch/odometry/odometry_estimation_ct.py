@@ -20,12 +20,18 @@ discarded on the host (``step`` is a host int), so nothing of it reaches the
 pose, the twist or the model. Random draws come from the module's own
 ``torch.Generator``.
 
+On the card, the ivox model's steps past the bootstrap are replayed from a
+CUDA graph (``ct_graph.py``): ``_ct_scan_step`` hands them to the
+odometry's ``CTGraphRunner``, and the lookups' ``nn_search`` calls run
+eagerly between its segments.
+
 Spans (``utils/profiling.py``, host time, no device sync): ``ct_scan_step``
 a step, inside it ``ct/lookup`` a model lookup (4 a step at
-``lm_max_iterations`` 8) and ``ct/model_insert``; ``ct/bootstrap_replay``
-once, when the bootstrap scans are replayed. An estimate carries the
-``host_stamps`` of its frame and ``estimate``; a frame that leaves the
-smoother lag gets ``marginalized`` (``record_map_lag``'s stages).
+``lm_max_iterations`` 8) and ``ct/model_insert``, replayed or not;
+``ct/bootstrap_replay`` once, when the bootstrap scans are replayed. An
+estimate carries the ``host_stamps`` of its frame and ``estimate``; a frame
+that leaves the smoother lag gets ``marginalized`` (``record_map_lag``'s
+stages).
 """
 
 from __future__ import annotations
@@ -184,9 +190,10 @@ def _priors(T_b, T_e, T_prev_e, cv_target, weights):
     return H, b6.reshape(12), err.sum()
 
 
-def _model_lookup(model, model_kind: str, mask, max_dist: float):
+def _model_lookup(model, model_kind: str, mask, max_dist: float, search=None):
     """World-frame query points (C, 3) -> (mu, C_t, hit) against the
-    read-only model."""
+    read-only model. ``search`` stands in for ``nn_search`` (the ivox
+    model's), as a graph capture hands one in."""
     max_d2 = max_dist * max_dist
     if model_kind == "vgicp":
         tables = [(vm, vmx.lookup_table(vm)) for vm in model]
@@ -211,7 +218,8 @@ def _model_lookup(model, model_kind: str, mask, max_dist: float):
 
     def lookup(q):
         with profile_scope("ct/lookup"):
-            idx, d2 = nn_search(q.contiguous(), mask, model.points, model.mask)
+            find = nn_search if search is None else search
+            idx, d2 = find(q.contiguous(), mask, model.points, model.mask)
             idx = idx.to(torch.int64)
             hit = mask & (d2 < max_d2) & torch.isfinite(d2)
             return model.points[idx], model.covs[idx], hit
@@ -222,9 +230,39 @@ def _ct_scan_step(T_prev_e, twist_prev, step: int, model, pts, times, mask, neig
                   dt, uniforms, max_dist: float, loc_weight: float, cv_weight: float,
                   damping: float, *, iters: int, bootstrap_frames: int,
                   update_budget: int, model_kind: str = "ivox",
-                  rigid_refine: bool = True, anchor_begin: bool = False):
+                  rigid_refine: bool = True, anchor_begin: bool = False, graph=None):
     """One CT scan step. ``uniforms`` (C,) are the model update's random
-    draws. Returns (T_b, T_e, twist, model', deskewed, covs, normals, errs)."""
+    draws. Returns (T_b, T_e, twist, model', deskewed, covs, normals, errs).
+    ``graph`` (a ``ct_graph.CTGraphRunner``) replays the step from a CUDA
+    graph on the card; without it the step's ops are dispatched one by one."""
+    args = (T_prev_e, twist_prev, step, model, pts, times, mask, neighbors, dt, uniforms,
+            max_dist, loc_weight, cv_weight, damping)
+    static = dict(iters=iters, bootstrap_frames=bootstrap_frames,
+                  update_budget=update_budget, model_kind=model_kind,
+                  rigid_refine=rigid_refine, anchor_begin=anchor_begin)
+    if graph is not None:
+        return graph(*args, **static)
+    return _ct_ops(*args, **static)
+
+
+def _ct_ops(T_prev_e, twist_prev, step: int, model, *args, **static):
+    """``_ct_scan_step``'s ops, dispatched one by one: the solve, then the
+    model update."""
+    (T_b, T_e, twist, deskewed, covs, normals, errs, w_pts, keep,
+     covs_w) = _ct_solve(T_prev_e, twist_prev, step, model, *args, **static)
+    model = _ct_model_insert(model, static["model_kind"], w_pts, keep, covs_w, step)
+    return T_b, T_e, twist, model, deskewed, covs, normals, errs
+
+
+def _ct_solve(T_prev_e, twist_prev, step: int, model, pts, times, mask, neighbors,
+              dt, uniforms, max_dist: float, loc_weight: float, cv_weight: float,
+              damping: float, *, iters: int, bootstrap_frames: int,
+              update_budget: int, model_kind: str, rigid_refine: bool,
+              anchor_begin: bool, search=None):
+    """The step up to the model update: (T_b, T_e, twist, deskewed, covs,
+    normals, errs) and the update's inputs (world points, the points kept,
+    world covariances). The host int ``step`` picks the two host branches
+    (the first step's discard, the bootstrap's rate) and nothing else."""
     dev = pts.device
     # Normalized per-point time s in [0, 1].
     t_max = torch.max(torch.where(mask, times, 0.0))
@@ -236,7 +274,7 @@ def _ct_scan_step(T_prev_e, twist_prev, step: int, model, pts, times, mask, neig
     cv_target = damping * twist_prev * dt
     T_b0 = T_prev_e
     T_e0 = T_b0 @ lie.se3_exp(cv_target)
-    model_lookup = _model_lookup(model, model_kind, mask, max_dist)
+    model_lookup = _model_lookup(model, model_kind, mask, max_dist, search)
     lam = torch.full((), 1e-6, device=dev)
     # Filled on the device: a tensor made from a Python list would be a
     # host-to-device copy that waits for the stream.
@@ -319,12 +357,16 @@ def _ct_scan_step(T_prev_e, twist_prev, step: int, model, pts, times, mask, neig
     C = w_pts.shape[0]
     rate = 1.0 if step < bootstrap_frames else update_budget / C
     keep = mask & (uniforms < rate)
+    return T_b, T_e, twist_new, deskewed, covs, normals, errs, w_pts, keep, covs_w
+
+
+def _ct_model_insert(model, model_kind: str, w_pts, keep, covs_w, step):
+    """The model update of a step; ``step`` is its int or, for the ivox
+    model, a 0-dim device tensor."""
     with profile_scope("ct/model_insert"):
         if model_kind == "vgicp":
-            model = tuple(vmx.voxelmap_insert(vm, w_pts, keep, covs_w, step) for vm in model)
-        else:
-            model = vmx.pointmap_insert(model, w_pts, keep, covs_w, step)
-    return T_b, T_e, twist_new, model, deskewed, covs, normals, errs
+            return tuple(vmx.voxelmap_insert(vm, w_pts, keep, covs_w, step) for vm in model)
+        return vmx.pointmap_insert(model, w_pts, keep, covs_w, step)
 
 
 class OdometryEstimationCT(OdometryEstimationBase):
@@ -343,6 +385,10 @@ class OdometryEstimationCT(OdometryEstimationBase):
         self.frames: List[EstimationFrame] = []
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(5)
+        # _ct_scan_step, replayed from a CUDA graph on the card (ct_graph
+        # imports this module).
+        from glim_tpu_torch.odometry.ct_graph import CTGraphRunner
+        self._graph = CTGraphRunner()
         # Bootstrap replay buffer: the first scans register against a model
         # seeded from insertions deskewed with an immature twist.
         self._boot: List[tuple] = []
@@ -371,7 +417,8 @@ class OdometryEstimationCT(OdometryEstimationBase):
                 p.constant_velocity_inf_scale, p.extrapolation_damping,
                 iters=p.lm_max_iterations, bootstrap_frames=p.bootstrap_frames,
                 update_budget=p.update_budget, model_kind=self.model_kind,
-                rigid_refine=bool(p.rigid_refine), anchor_begin=bool(p.anchor_begin))
+                rigid_refine=bool(p.rigid_refine), anchor_begin=bool(p.anchor_begin),
+                graph=self._graph)
 
     def insert_frame(self, frame: PreprocessedFrame,
                      marginalized: Optional[List[EstimationFrame]] = None

@@ -298,11 +298,14 @@ def pointmap_insert(pm: PointVoxelMap, points: torch.Tensor, mask: torch.Tensor,
                     covs: torch.Tensor, step) -> PointVoxelMap:
     """Insert new points, keeping at most one point per min_dist sub-voxel
     (existing points win) and the most recently touched ``capacity`` points
-    overall (LRU)."""
+    overall (LRU). ``step`` is a Python int, or a 0-dim integer tensor on the
+    map's device (a captured program's input, so no replay reuses the step
+    of its capture)."""
     M = pm.capacity
     C = points.shape[0]
     dev = points.device
-    step = torch.full((), step, dtype=torch.int64, device=dev)
+    step = (step.to(torch.int64) if isinstance(step, torch.Tensor)
+            else torch.full((), step, dtype=torch.int64, device=dev))
 
     all_pts = torch.cat([pm.points, points])
     all_cov = torch.cat([pm.covs, covs])
